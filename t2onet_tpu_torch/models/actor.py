@@ -1,0 +1,180 @@
+"""The actor: request + image -> op program (counterpart of
+`t2onet_tpu.models.actor`). This slice ports the greedy eval-mode
+rollout that serving runs; the teacher-forced pass, sampling and the RL
+step come with the training slice.
+
+Module names are the reference checkpoint's (`vis_encoder`, `bn1`,
+`lang_encoder`, `decoder`, `executor.<op>_op.fc1/fc2`), so
+`t2onet_tpu.convert.convert_state_dict(actor.state_dict())` reads a
+port actor as it reads a reference checkpoint.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from t2onet_tpu_torch.config import ModelConfig, OperatorConfig
+from t2onet_tpu_torch.models.common import init_torch_defaults
+from t2onet_tpu_torch.models.decoder import DecoderStep
+from t2onet_tpu_torch.models.encoder import RNNEncoder
+from t2onet_tpu_torch.models.resnet import ResNet
+from t2onet_tpu_torch.ops import bank
+from t2onet_tpu_torch.ops.operators import OP_NAMES, PARAM_COUNTS
+
+# Ops the rollout may pick: blocks <NONE>, <START>, inpaint_obj, color_bg
+# (vocab order <NONE> <START> <END> brightness contrast saturation hue
+#  inpaint_obj tint sharpness color_bg).
+EPISODE_OP_MASK = np.array(
+    [0.0, 0.0, 1.0, 1.0, 1.0, 1.0, 1.0, 0.0, 1.0, 1.0, 0.0], dtype=np.float32)
+
+END_OP_ID = 2
+
+
+def _renorm_masked_probs(probs, op_mask, n_vocab):
+    """Hard-mask and renormalise; a row the mask empties entirely emits
+    <END> (always legal and terminal) instead of a uniform draw."""
+    probs = probs * op_mask
+    total = probs.sum(dim=1, keepdim=True)
+    end = F.one_hot(torch.full((probs.shape[0],), END_OP_ID,
+                               device=probs.device), n_vocab).to(probs.dtype)
+    return torch.where(total > 0.0, probs / (total + 1e-30), end)
+
+
+class _OpHead(nn.Module):
+    def __init__(self, ctx_dim: int, fc_dim: int, n_param: int):
+        super().__init__()
+        self.fc1 = nn.Linear(ctx_dim, fc_dim)
+        self.fc2 = nn.Linear(fc_dim, n_param)
+
+
+class ParamHeads(nn.Module):
+    """The eight per-op parameter heads (fc1 -> LeakyReLU -> fc2), run as
+    two batched products over weights stacked and zero-padded to 24
+    outputs, as `t2onet_tpu.ops.bank.raw_head_features` runs them."""
+
+    def __init__(self, opcfg: OperatorConfig, ctx_dim: int = 512,
+                 fc_dim: int = 512):
+        super().__init__()
+        self.opcfg = opcfg
+        for name, k in zip(OP_NAMES, PARAM_COUNTS):
+            setattr(self, f"{name}_op", _OpHead(ctx_dim, fc_dim, k))
+
+    def stacked(self):
+        heads = [getattr(self, f"{name}_op") for name in OP_NAMES]
+        w1 = torch.stack([h.fc1.weight.t() for h in heads])
+        b1 = torch.stack([h.fc1.bias for h in heads])
+        w2 = torch.stack([F.pad(h.fc2.weight.t(),
+                                (0, bank.MAX_PARAM - h.fc2.out_features))
+                          for h in heads])
+        b2 = torch.stack([F.pad(h.fc2.bias,
+                                (0, bank.MAX_PARAM - h.fc2.out_features))
+                          for h in heads])
+        return w1, b1, w2, b2
+
+    def forward(self, context):
+        """context (B, ctx) -> squashed per-op params (B, 8, 24)."""
+        raw = bank.raw_head_features(*self.stacked(), context)
+        return bank.squash_params(raw, self.opcfg)
+
+
+class Actor(nn.Module):
+    def __init__(self, cfg: ModelConfig, opcfg: OperatorConfig,
+                 vocab_size: int, *, generator: torch.Generator,
+                 explore_prob: float = 0.05):
+        """Weights are drawn on the CPU from `generator` by torch's
+        default init; move the actor with `.to(device)`."""
+        super().__init__()
+        if cfg.vis_bf16 or cfg.discrete_param:
+            raise NotImplementedError(
+                "vis_bf16 and discrete_param are not ported yet")
+        self.cfg = cfg
+        self.opcfg = opcfg
+        self.explore_prob = explore_prob
+        with torch.device("meta"):
+            self.vis_encoder = ResNet(cfg.resnet_depth, cfg.vis_feat_dim,
+                                      cfg.resnet_widths)
+            self.bn1 = nn.BatchNorm1d(cfg.vis_feat_dim, eps=1e-5,
+                                      momentum=0.1)
+            self.lang_encoder = RNNEncoder(vocab_size, cfg.word_vec_dim,
+                                           cfg.hidden_size, cfg.n_layers,
+                                           pad_id=cfg.null_id)
+            self.decoder = DecoderStep(cfg.op_vocab_size, cfg.word_vec_dim,
+                                       cfg.decoder_hidden, cfg.n_layers,
+                                       cfg.use_attention, cfg.vis_feat_dim)
+            self.executor = ParamHeads(opcfg, cfg.decoder_hidden,
+                                       cfg.operator_fc_dim)
+        self.to_empty(device="cpu")
+        init_torch_defaults(self, generator)
+
+    def _attn_mask(self, enc_valid):
+        """Each request's true length, or with cfg.attend_batch_max every
+        position up to the batch's longest request (the reference's
+        unmasked attention over zero-padded encoder outputs)."""
+        if not self.cfg.attend_batch_max:
+            return enc_valid
+        lengths = enc_valid.sum(dim=1)
+        pos = torch.arange(enc_valid.shape[1], device=enc_valid.device)
+        return (pos < lengths.max()).to(enc_valid.dtype) \
+            .expand_as(enc_valid)
+
+    def vis_feat(self, img):
+        """ResNet feature -> BN1d -> ReLU."""
+        return F.relu(self.bn1(self.vis_encoder(img)))
+
+    def episode(self, x, img_x):
+        """Greedy rollout of decoder_max_len steps. Each step encodes the
+        current image, decodes one op (explore smoothing, hard mask,
+        argmax, no-repeat update), predicts its params and executes it
+        through the bank.
+
+        :param x: (B, L) request tokens; img_x (B, 3, H, W).
+        :return: dict with imgs (B, S, 3, H, W), ops (B, S),
+            params (B, S, 24), logprobs (B, S, n_cls), attn (B, S, L).
+        """
+        cfg = self.cfg
+        b = x.shape[0]
+        enc_out, enc_hidden, enc_valid = self.lang_encoder(x)
+        enc_valid = self._attn_mask(enc_valid)
+        carry = self.decoder.init_carry(enc_hidden)
+        op_mask = torch.as_tensor(EPISODE_OP_MASK, device=x.device) \
+            .expand(b, cfg.op_vocab_size)
+        pred_op = torch.full((b,), cfg.start_id, dtype=torch.long,
+                             device=x.device)
+        img = img_x
+        ys = {"imgs": [], "ops": [], "params": [], "logprobs": [],
+              "attn": []}
+        for _ in range(cfg.decoder_max_len):
+            feat = self.vis_feat(img)
+            logprob, carry, attn, context = self.decoder(
+                pred_op, carry, enc_out, enc_valid, feat)
+            probs = (torch.exp(logprob) * (1.0 - self.explore_prob)
+                     + self.explore_prob)
+            probs = _renorm_masked_probs(probs, op_mask, cfg.op_vocab_size)
+            pred_op = torch.argmax(probs, dim=-1)
+            op_mask = op_mask * (1.0 - F.one_hot(
+                pred_op, cfg.op_vocab_size).to(op_mask.dtype))
+            img, chosen = bank.execute_bank(img, pred_op,
+                                            self.executor(context))
+            for key, val in (("imgs", img), ("ops", pred_op),
+                             ("params", chosen), ("logprobs", logprob),
+                             ("attn", attn)):
+                ys[key].append(val)
+        out = {k: torch.stack(v, dim=1) for k, v in ys.items()
+               if k != "attn"}
+        out["attn"] = (torch.stack(ys["attn"], dim=1)
+                       if cfg.use_attention else None)
+        return out
+
+
+def select_end_images(imgs, ops, end_id: int = END_OP_ID):
+    """Each image at its first <END> step, else at the last step.
+    imgs (B, S, 3, H, W); ops (B, S) -> (B, 3, H, W)."""
+    s = ops.shape[1]
+    is_end = ops == end_id
+    first_end = torch.argmax(is_end.to(torch.int32), dim=1)
+    idx = torch.where(is_end.any(dim=1), first_end,
+                      torch.full_like(first_end, s - 1))
+    return imgs[torch.arange(imgs.shape[0], device=imgs.device), idx]

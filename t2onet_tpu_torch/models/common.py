@@ -1,0 +1,58 @@
+"""Shared cells and the seeded torch-default initialisation."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def lstm_step(x, carry, w_ih, w_hh, b_ih, b_hh):
+    """One LSTM cell step in torch's layout and gate order (i, f, g, o).
+
+    x (B, in); carry (h, c) each (B, H); w_ih (4H, in), w_hh (4H, H).
+    Returns the new (h, c)."""
+    h, c = carry
+    gates = x @ w_ih.t() + b_ih + h @ w_hh.t() + b_hh
+    i, f, g, o = gates.chunk(4, dim=-1)
+    i = torch.sigmoid(i)
+    f = torch.sigmoid(f)
+    g = torch.tanh(g)
+    o = torch.sigmoid(o)
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def _uniform(t, lim, generator):
+    with torch.no_grad():
+        t.copy_((torch.rand(t.shape, generator=generator) * 2.0 - 1.0) * lim)
+
+
+@torch.no_grad()
+def init_torch_defaults(module: nn.Module, generator: torch.Generator):
+    """Draw every parameter as torch's own defaults do, from `generator`
+    (a CPU generator, so one seed gives the same weights on any device):
+    Linear and Conv2d U(+-1/sqrt(fan_in)) for weight and bias, LSTM
+    U(+-1/sqrt(hidden)), Embedding N(0, 1), BatchNorm weight 1, bias 0,
+    running mean 0 and variance 1."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            lim = 1.0 / math.sqrt(fan_in)
+            _uniform(m.weight, lim, generator)
+            if m.bias is not None:
+                _uniform(m.bias, lim, generator)
+        elif isinstance(m, nn.LSTM):
+            lim = 1.0 / math.sqrt(m.hidden_size)
+            for p in m.parameters():
+                _uniform(p, lim, generator)
+        elif isinstance(m, nn.Embedding):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+            m.num_batches_tracked.zero_()

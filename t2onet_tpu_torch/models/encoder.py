@@ -1,0 +1,43 @@
+"""Bi-directional multi-layer LSTM request encoder (counterpart of
+`t2onet_tpu.models.encoder`). `nn.LSTM` over a packed sequence gives the
+same semantics as the JAX package's two masked scans per layer: the
+forward final state is taken at each request's true last token, the
+backward pass starts at its true end, and outputs at padding are zero."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+
+class RNNEncoder(nn.Module):
+    def __init__(self, vocab_size: int, word_vec_dim: int = 300,
+                 hidden_size: int = 256, n_layers: int = 2, pad_id: int = 0):
+        super().__init__()
+        self.pad_id = pad_id
+        self.n_layers = n_layers
+        self.embedding = nn.Embedding(vocab_size, word_vec_dim)
+        self.rnn = nn.LSTM(word_vec_dim, hidden_size, num_layers=n_layers,
+                           batch_first=True, bidirectional=True)
+
+    def forward(self, tokens):
+        """tokens (B, L) int, zero-padded after the request.
+
+        Returns outputs (B, L, 2H) zero at padding; (h, c) each
+        (n_layers, B, 2H) with the two directions concatenated; and the
+        valid mask (B, L) float."""
+        b, l = tokens.shape
+        lengths = (tokens != self.pad_id).sum(dim=1)
+        valid = (torch.arange(l, device=tokens.device)[None, :]
+                 < lengths[:, None]).to(torch.float32)
+        packed = pack_padded_sequence(self.embedding(tokens), lengths.cpu(),
+                                      batch_first=True, enforce_sorted=False)
+        out, (h, c) = self.rnn(packed)
+        out, _ = pad_packed_sequence(out, batch_first=True, total_length=l)
+
+        def cat_directions(s):
+            s = s.view(self.n_layers, 2, b, -1)
+            return torch.cat([s[:, 0], s[:, 1]], dim=-1)
+
+        return out, (cat_directions(h), cat_directions(c)), valid

@@ -1,0 +1,282 @@
+"""The operator chain: K steps of a selected op per image, in one pass.
+
+`fused_chain` replaces the Pallas `fused_chain` / `_chain_kernel` of
+`t2onet_tpu/ops/pallas_fused.py`. On a CUDA tensor it launches the
+hand-written kernel in `csrc/chain.cu`; on a CPU tensor it runs
+`fused_chain_reference`, the same function in plain PyTorch. There is no
+fallback from one to the other: a CUDA call that cannot launch raises.
+
+Slot ids (as in the JAX package): 0 identity, 1..8 = brightness,
+contrast, saturation, color, inpaint (identity here), tone, sharpness,
+white. Slots 0 and 5 leave the image as it is (no clamp); every other
+step is `out = clip(op(out, params[b, k]), 0, 1)`. The maths follows
+`pallas_fused.py` (not the bank): brightness with eps 1e-12, the
+single-division saturation with its 2^20 scaling, the polynomial cos of
+contrast, and the min-form curves. The kernel does each multiply and add
+in the same order, rounded on its own, so the two agree to a few ulp.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+MAX_PARAM = 24
+CURVE_STEPS = 8
+TILE = 32                     # output tile side of one kernel block
+SMEM_LIMIT = 232448           # shared memory one Hopper block can use
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "chain.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "_build")
+
+# Kernel launches by wrapper, incremented only where a kernel is launched.
+LAUNCHES = {"chain": 0}
+
+_lib = None
+BUILD_LOG = {}
+
+
+# ---------------------------------------------------------------------------
+# the plain version: one selected branch per image, torch.where over slots
+# ---------------------------------------------------------------------------
+
+def _clip01(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def _scalar(p):
+    """Column 0 of the (B, 24) params as (B, 1, 1, 1)."""
+    return p[:, 0].view(-1, 1, 1, 1)
+
+
+def _brightness(img, p):
+    v = torch.maximum(torch.maximum(img[:, 0:1], img[:, 1:2]), img[:, 2:3])
+    k = _clip01(v * (1.0 + _scalar(p))) / (v + 1e-12)
+    return img * k
+
+
+def _saturation(img, p):
+    s = 1048576.0                                   # 2^20, an exact scaling
+    v = torch.maximum(torch.maximum(img[:, 0:1], img[:, 1:2]), img[:, 2:3])
+    mn = torch.minimum(torch.minimum(img[:, 0:1], img[:, 1:2]), img[:, 2:3])
+    d = v - mn
+    ve = v + 1e-8
+    num = torch.minimum(torch.clamp(d * (1.0 + _scalar(p)), min=0.0), ve) * s
+    ratio = num / (d * s + (1e-12 * s) * ve)
+    return v - ratio * (v - img)
+
+
+# sin(pi*u)/u as an even polynomial in u^2 (pallas_fused._SINPI_C)
+_SINPI_C = (3.1415926536, -5.1677127683, 2.5501634534,
+            -5.9925387121e-1, 8.2058791186e-2, -7.0429524662e-3)
+
+
+def _contrast(img, p):
+    lum = _clip01(0.27 * img[:, 0:1] + 0.67 * img[:, 1:2]
+                  + 0.06 * img[:, 2:3])
+    u = lum - 0.5
+    v = u * u
+    w = v * v
+    c = _SINPI_C
+    acc = (c[0] + c[1] * v) + w * ((c[2] + c[3] * v) + w * (c[4] + c[5] * v))
+    clum = (acc * u) * 0.5 + 0.5
+    ratio = clum / (lum + 1e-6)
+    pk = _scalar(p)
+    k = (1.0 - pk) + pk * ratio
+    return img * k
+
+
+def _curve(x, knots):
+    """Min-form 8-knot curve: x (B,C,H,W), knots (B,C|1,8). With t=S*x,
+    sum_i p_i clip(x - i/S, 0, 1/S) S/csum equals
+    a x - sum_j b_j min(x, j/S), a = S p_{S-1}/csum,
+    b_j = S (p_j - p_{j-1})/csum."""
+    p = knots[:, :, :, None, None]                  # (B, C|1, 8, 1, 1)
+    csum = torch.full_like(p[:, :, 0], 1e-10)
+    for i in range(CURVE_STEPS):
+        csum = csum + p[:, :, i]
+    s = CURVE_STEPS / csum
+    out = (s * p[:, :, CURVE_STEPS - 1]) * x
+    for j in range(1, CURVE_STEPS):
+        out = out - (s * (p[:, :, j] - p[:, :, j - 1])) * torch.clamp(
+            x, max=j / CURVE_STEPS)
+    return out
+
+
+def _tone(img, p):
+    return _curve(img, p[:, None, 0:CURVE_STEPS])
+
+
+def _color(img, p):
+    return _curve(img, p.reshape(-1, 3, CURVE_STEPS))
+
+
+def _sharpness(img, p):
+    z = torch.zeros_like(img[:, :, :1])
+    up = torch.cat([z, img[:, :, :-1]], dim=2)          # img[y-1, x]
+    down = torch.cat([img[:, :, 1:], z], dim=2)         # img[y+1, x]
+    zc = torch.zeros_like(img[:, :, :, :1])
+    left = torch.cat([zc, img[:, :, :, :-1]], dim=3)    # img[y, x-1]
+    right = torch.cat([img[:, :, :, 1:], zc], dim=3)    # img[y, x+1]
+    delta = 4.0 * img - up - down - left - right
+    return img + _scalar(p) * delta
+
+
+def _white(img, p):
+    return torch.ones_like(img)
+
+
+_BRANCHES = {1: _brightness, 2: _contrast, 3: _saturation, 4: _color,
+             6: _tone, 7: _sharpness, 8: _white}
+
+
+def fused_chain_reference(imgs, op_slots, params):
+    """Plain PyTorch chain: imgs (B,3,H,W) f32, op_slots (B,K) int,
+    params (B,K,24) f32 -> (B,3,H,W) f32. Out-of-range slots clamp into
+    0..8, as `lax.switch` clamps its index."""
+    out = imgs
+    slots = op_slots.clamp(0, 8)
+    for k in range(op_slots.shape[1]):
+        sk = slots[:, k].view(-1, 1, 1, 1)
+        pk = params[:, k]
+        nxt = out
+        for slot, branch in _BRANCHES.items():
+            nxt = torch.where(sk == slot, _clip01(branch(out, pk)), nxt)
+        out = nxt
+    return out
+
+
+def vocab_ops_to_slots(op_vocab_ids):
+    """Decoder vocab ids (B, K) -> kernel slot ids (identity for ids < 3)."""
+    exec_idx = op_vocab_ids - 3
+    return torch.where(exec_idx < 0, torch.zeros_like(exec_idx),
+                       exec_idx + 1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: build at first use, bind with ctypes
+# ---------------------------------------------------------------------------
+
+def smem_bytes(k: int) -> int:
+    """Dynamic shared memory of one block for a K-step chain: two
+    ping-pong copies of the tile plus a K-pixel halo, three f32 planes
+    each, then the K x 24 params and the K slots (chain.cu's layout)."""
+    side = TILE + 2 * k
+    return 2 * 3 * side * side * 4 + k * MAX_PARAM * 4 + k * 4
+
+
+def _find_nvcc() -> str:
+    """nvcc on PATH, else under CUDA_HOME (default /usr/local/cuda)."""
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the chain kernel cannot be built")
+    return nvcc
+
+
+def build() -> str:
+    """Compile csrc/chain.cu for sm_90a into the package's _build
+    directory (named by the source's hash, so an edit rebuilds) and
+    return the library's path. BUILD_LOG keeps the compiler's report."""
+    with open(_CSRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    so = os.path.join(_BUILD_DIR, f"libt2o_chain_{digest}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    # no --use_fast_math: the brightness and saturation quotients need
+    # IEEE division; -fmad=false rounds every multiply and add on its own,
+    # as the plain version's separate tensor ops do
+    cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+           "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _CSRC]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOG["cmd"] = " ".join(cmd)
+    BUILD_LOG["output"] = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{BUILD_LOG['output']}")
+    os.replace(tmp, so)
+    return so
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.t2o_chain_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.t2o_chain_launch.restype = i
+        lib.t2o_error_string.argtypes = [i]
+        lib.t2o_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(imgs, op_slots, params):
+    if imgs.dtype != torch.float32 or params.dtype != torch.float32:
+        raise TypeError(f"fused_chain wants float32 imgs and params, got "
+                        f"{imgs.dtype} and {params.dtype}")
+    if op_slots.dtype != torch.int32:
+        raise TypeError(f"fused_chain wants int32 op_slots, got "
+                        f"{op_slots.dtype}")
+    if imgs.ndim != 4 or imgs.shape[1] != 3:
+        raise ValueError(f"imgs must be (B, 3, H, W), got {tuple(imgs.shape)}")
+    b, _, h, w = imgs.shape
+    if op_slots.ndim != 2 or op_slots.shape[0] != b:
+        raise ValueError(f"op_slots must be (B, K) with B={b}, got "
+                         f"{tuple(op_slots.shape)}")
+    k = op_slots.shape[1]
+    if tuple(params.shape) != (b, k, MAX_PARAM):
+        raise ValueError(f"params must be {(b, k, MAX_PARAM)}, got "
+                         f"{tuple(params.shape)}")
+    for name, t in (("imgs", imgs), ("op_slots", op_slots),
+                    ("params", params)):
+        if t.device != imgs.device:
+            raise ValueError(f"{name} is on {t.device}, imgs on "
+                             f"{imgs.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if smem_bytes(k) > SMEM_LIMIT:
+        raise ValueError(f"a {k}-step chain needs {smem_bytes(k)} B of shared "
+                         f"memory per block, more than {SMEM_LIMIT}")
+    if b > 65535 or -(-h // TILE) > 65535:
+        raise ValueError(f"grid too large for batch {b}, height {h}")
+
+
+def fused_chain(imgs, op_slots, params):
+    """Apply per-image op chains.
+
+    :param imgs: (B, 3, H, W) float32 in [0, 1].
+    :param op_slots: (B, K) int32 slot ids.
+    :param params: (B, K, 24) float32.
+    :return: (B, 3, H, W) float32.
+    """
+    if imgs.device.type == "cpu":
+        return fused_chain_reference(imgs, op_slots, params)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"fused_chain runs on cpu or cuda, not "
+                         f"{imgs.device}")
+    _check(imgs, op_slots, params)
+    lib = _library()
+    b, _, h, w = imgs.shape
+    out = torch.empty_like(imgs)
+    with torch.cuda.device(imgs.device):
+        stream = torch.cuda.current_stream(imgs.device).cuda_stream
+        rc = lib.t2o_chain_launch(imgs.data_ptr(), op_slots.data_ptr(),
+                                  params.data_ptr(), out.data_ptr(),
+                                  b, h, w, op_slots.shape[1], stream)
+    if rc != 0:
+        raise RuntimeError(f"chain kernel launch failed: "
+                           f"{lib.t2o_error_string(rc).decode()}")
+    LAUNCHES["chain"] += 1
+    return out
