@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -6,17 +7,36 @@ Phases (any failure exits non-zero):
 
 1. device: a CUDA card of compute capability 9.0, with TF32 off for
    matmuls and cuDNN convolutions so that f32 means f32;
-2. build: the chain kernel from t2onet_tpu_torch/csrc/ with nvcc;
-3. kernel against plain: the chain kernel and its plain PyTorch version on
-   the same tensors on the card, at the serving shapes and at the chain
-   benchmark's (bench.py's draw: b128, 512 px, K5), max abs error
-   <= 1e-5 (both round every multiply and add alone, in the same order),
-   then both timed with CUDA events;
-4. serve: a full-width actor (ModelConfig() defaults, 918-token
+2. build: every kernel source of t2onet_tpu_torch/csrc/ with nvcc, one
+   process per source, side by side;
+3. chain kernel against plain: the chain kernel (B1) and its plain
+   PyTorch version on the same tensors on the card, at the serving shapes,
+   at the chain benchmark's (bench.py's draw: b128, 512 px, K5) and at
+   K=1 as the trainer's fused step runs it (b64, 128 px, and b128 x
+   512 px, every slot), max abs error <= 1e-5 (both round every multiply
+   and add alone, in the same order), then both timed with CUDA events;
+4. step backward against plain: the step_bwd kernel (B3) and its plain
+   version at the trainer's shape (b64, 128 px, every slot), at
+   b128 x 512 px and at odd shapes, on images with exact 0 / 0.5 / 1,
+   gray and two-equal-channel patches and saturating brightness: d_img
+   max abs error <= 1e-6, d_params max error <= 1e-5 of the image's
+   largest d_params entry (both sum per-pixel f32 terms in f64, in
+   different orders); both timed, with B1 at K=1 beside them;
+5. serve: a full-width actor (ModelConfig() defaults, 918-token
    vocabulary, seeded random weights) behind ServingEngine on the card:
    32 requests over two shape buckets with the launch counters read
    around the run, two of them again on the CPU for parity, then the
-   request rate over 64 requests at 512 px.
+   request rate over 64 requests at 512 px;
+6. train: `t2onet_tpu_torch.cli.train_fivek --synthetic` at
+   ModelConfig() widths, batch 64, 128 px, 8 iterations (4 of each
+   phase) through the fused step kernels, with the launch counters read
+   around the run: finite losses, changed weights, a checkpoint, and
+   chain = step_bwd = 5 launches per episode iteration; then each
+   phase's step time on batches already on the card, and the episode
+   step through the fused kernels against the bank;
+7. card vs CPU: one episode step of a full-width actor from the same
+   weights and the same Gumbel noise, b8 at 64 px, through the kernels
+   on the card and the plain versions on the CPU.
 
 The last three lines of stdout are the kernels JSON line, the card's
 name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
@@ -25,6 +45,9 @@ Imports nothing of JAX and nothing of the JAX package.
 
 import copy
 import json
+import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -33,15 +56,22 @@ import time
 import numpy as np
 import torch
 
+from t2onet_tpu_torch.cli import common, train_fivek
 from t2onet_tpu_torch.config import (FIVEK_VOCAB_SIZE, ModelConfig,
                                      OperatorConfig)
+from t2onet_tpu_torch.data.loader import device_put_batch
+from t2onet_tpu_torch.data.synthetic import SyntheticFiveK, synthetic_vocab
 from t2onet_tpu_torch.data.text import parse_sent
 from t2onet_tpu_torch.models.actor import Actor
-from t2onet_tpu_torch.ops import chain
+from t2onet_tpu_torch.ops import build, chain, step
 from t2onet_tpu_torch.ops.operators import OP_NAMES
 from t2onet_tpu_torch.serve import ServingEngine
+from t2onet_tpu_torch.train import loop
 
 CHAIN_ATOL = 1e-5
+STEP_IMG_ATOL = 1e-6
+STEP_PARAM_RTOL = 1e-5
+TRAIN_RUN_DIR = os.path.join("output", "chip_smoke_train")
 TEXTS = ["increase the brightness", "improve contrast",
          "increase saturation", "sharpen the image"]   # cli/serve.py's
 
@@ -80,12 +110,14 @@ def device_phase():
 # -- phase 2 ------------------------------------------------------------------
 def build_phase():
     t0 = time.perf_counter()
-    so = chain.build()
+    libs = build.build()
     chain._library()
-    log(f"build: {so} in {time.perf_counter() - t0:.2f} s")
-    for line in chain.BUILD_LOG.get("output", "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    step._library()
+    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    for name, entry in sorted(build.BUILD_LOG.items()):
+        for line in entry["output"].splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -115,6 +147,13 @@ def random_case(b, h, w, k=5, seed=1, identity=False):
     slots = rng.choice(pool, size=(b, k)).astype(np.int32)
     params = rng.uniform(0.1, 0.6, (b, k, 24)).astype(np.float32)
     return imgs, slots, params
+
+
+def step_k1_case(b, h, w, seed):
+    """step_case's images, slots and params as a one-step chain."""
+    imgs, slots, params, _ = step_case(b, h, w, seed)
+    return (imgs, np.ascontiguousarray(slots[:, None]),
+            np.ascontiguousarray(params[:, None]))
 
 
 def to_card(*arrays):
@@ -152,6 +191,9 @@ def kernel_phase():
         "3x320x448": random_case(3, 320, 448, seed=5),
         "2x33x97": random_case(2, 33, 97, seed=6),
         "identity 4x128x128": random_case(4, 128, 128, seed=7, identity=True),
+        # the fused step's forward: phase 4's images at K=1
+        "trainer b64 128x128 K1": step_k1_case(64, 128, 128, seed=10),
+        "b128 512x512 K1": step_k1_case(128, 512, 512, seed=11),
     }
     worst = 0.0
     for name, arrays in cases.items():
@@ -199,6 +241,93 @@ def kernel_phase():
 
 
 # -- phase 4 ------------------------------------------------------------------
+def step_case(b, h, w, seed):
+    """imgs, slots (every slot), params and a +-1 cotangent, with the
+    pixels where tie rules bite: exact 0 / 0.5 / 1, gray (three equal
+    channels), two equal channels; half the brightness images saturate."""
+    rng = np.random.default_rng(seed)
+    imgs = rng.uniform(0, 1, (b, 3, h, w)).astype(np.float32)
+    q = max(h // 8, 1)
+    for i, v in enumerate((0.0, 0.5, 1.0, 128.0 / 255.0)):
+        imgs[:, :, i * q:(i + 1) * q, : w // 3] = v
+    imgs[:, 0:2, 4 * q:5 * q, : w // 3] = 200.0 / 255.0
+    slots = (np.arange(b) % 9).astype(np.int32)
+    rng.shuffle(slots)
+    params = rng.uniform(0.1, 0.6, (b, 24)).astype(np.float32)
+    params[(slots == 1) & (np.arange(b) % 2 == 0), 0] = 0.9
+    g = np.sign(rng.uniform(-1, 1, (b, 3, h, w))).astype(np.float32)
+    return imgs, slots, params, g
+
+
+def param_rel_err(dp, ref):
+    """Max over images of |dp - ref| relative to the image's largest
+    |ref| entry (a row of zeros must match exactly)."""
+    d = (dp - ref).abs().amax(dim=1)
+    scale = ref.abs().amax(dim=1)
+    if bool((d[scale == 0] > 0).any()):
+        return float("inf")
+    return float((d / scale.clamp_min(1e-30)).max())
+
+
+def step_kernel_phase():
+    cases = {
+        "trainer b64 128x128": step_case(64, 128, 128, seed=10),
+        "b128 512x512": step_case(128, 512, 512, seed=11),
+        "2x33x97": step_case(2, 33, 97, seed=12),
+        "9x64x1024": step_case(9, 64, 1024, seed=13),
+        "9x8x8": step_case(9, 8, 8, seed=14),
+    }
+    worst_img = worst_param = 0.0
+    for name, arrays in cases.items():
+        args = to_card(*arrays)
+        d_img, d_params = step.step_bwd(*args)
+        torch.cuda.synchronize()
+        r_img, r_params = step.fused_step_bwd_reference(*args)
+        ei = max_err(d_img, r_img)
+        ep = param_rel_err(d_params, r_params)
+        log(f"step_bwd vs plain [{name}]: d_img max abs err {ei:.3e}, "
+            f"d_params max rel err {ep:.3e}")
+        if not (ei <= STEP_IMG_ATOL and ep <= STEP_PARAM_RTOL):
+            fail(f"step_bwd kernel disagrees with its plain version on "
+                 f"{name}: d_img {ei} (<= {STEP_IMG_ATOL}), d_params {ep} "
+                 f"(<= {STEP_PARAM_RTOL})")
+        worst_img, worst_param = max(worst_img, ei), max(worst_param, ep)
+
+    times = {}
+    for name in ("trainer b64 128x128", "b128 512x512"):
+        imgs, slots, params, g = to_card(*cases[name])
+
+        def kern():
+            step.step_bwd(imgs, slots, params, g)
+
+        def plain():
+            step.fused_step_bwd_reference(imgs, slots, params, g)
+
+        def fwd():
+            chain.fused_chain(imgs, slots[:, None].contiguous(),
+                              params[:, None].contiguous())
+
+        p1 = time_ms(plain, iters=10)
+        k1 = time_ms(kern)
+        k2 = time_ms(kern)
+        p2 = time_ms(plain, iters=10)
+        f = statistics.median(time_ms(fwd))
+        k = statistics.median(k1 + k2)
+        pl = statistics.median(p1 + p2)
+        moved = 3 * imgs.numel() * 4
+        log(f"step_bwd {name}: kernel {k:.4f} ms ({moved / k / 1e6:.1f} "
+            f"GB/s), plain {pl:.4f} ms; B1 at K=1 on the same images "
+            f"{f:.4f} ms; medians, kernel 2x20 calls, plain 2x10")
+        times[name] = (k, pl, f)
+    return {"max_abs_err": worst_img, "param_rel_err": worst_param,
+            "ms": times["trainer b64 128x128"][0],
+            "plain_ms": times["trainer b64 128x128"][1],
+            "ms_b128_512": times["b128 512x512"][0],
+            "plain_ms_b128_512": times["b128 512x512"][1],
+            "chain_k1_ms_b128_512": times["b128 512x512"][2]}
+
+
+# -- phase 5 ------------------------------------------------------------------
 def make_vocab():
     """918 tokens: the 4 specials, the requests' words, then filler."""
     words = []
@@ -242,17 +371,20 @@ def serve_phase():
     imgs = make_images(24, 512, 512, seed=0) + make_images(8, 384, 640, 1)
     reqs = [TEXTS[i % len(TEXTS)] for i in range(len(imgs))]
 
-    chain.LAUNCHES["chain"] = 0
+    for k in chain.LAUNCHES:
+        chain.LAUNCHES[k] = 0
     t0 = time.perf_counter()
     results = engine.edit_batch(imgs, reqs)
     first_s = time.perf_counter() - t0
     launches = chain.LAUNCHES["chain"]
     batches = engine.stats["batches"]
     log(f"serve: {len(results)} requests in {batches} micro-batches, first "
-        f"run {first_s:.3f} s; chain launches {launches}")
+        f"run {first_s:.3f} s; launches {dict(chain.LAUNCHES)}")
     if launches == 0 or launches != batches or batches != 4:
         fail(f"chain kernel launched {launches} times over {batches} "
              f"micro-batches (want 4 and 4)")
+    if chain.LAUNCHES["step_bwd"]:
+        fail("serving launched the step backward kernel")
     lens = []
     for im, r in zip(imgs, results):
         if r is None:
@@ -303,17 +435,198 @@ def serve_phase():
     return launches
 
 
+# -- phase 6 ------------------------------------------------------------------
+TRAIN_ARGV = ["--synthetic", "--device", "cuda", "--batch_size", "64",
+              "--img_size", "128", "--num_iters", "8", "--print_every", "2",
+              "--checkpoint_every", "8", "--val_batches", "1",
+              "--fused_exec", "1", "--run_dir", TRAIN_RUN_DIR]
+
+
+def train_phase():
+    shutil.rmtree(TRAIN_RUN_DIR, ignore_errors=True)
+    a = train_fivek.train_parser().parse_args(TRAIN_ARGV)
+    initial, _ = common.build_actor(a, len(synthetic_vocab()))
+    for k in chain.LAUNCHES:
+        chain.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    state = train_fivek.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(chain.LAUNCHES)
+    episodes = sum(1 for i in range(1, 9) if i % 2 == 0)
+    want = episodes * state.actor.cfg.decoder_max_len
+    log(f"train: 8 iterations in {wall:.2f} s (host clock, data made on "
+        f"the fly, validation and checkpoint included); launches "
+        f"{launches}, want chain = step_bwd = {want}")
+    if state.step != 8:
+        fail(f"the trainer stopped at step {state.step}, not 8")
+    if launches["step_bwd"] != want or launches["chain"] != want:
+        fail(f"launches {launches}: want {want} of each "
+             f"({episodes} episode iterations x {want // episodes} steps)")
+    with open(os.path.join(TRAIN_RUN_DIR, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [(r["step"], k, r[k]) for r in recs for k in
+              ("op_loss", "param_loss", "L1_loss", "val_L1") if k in r]
+    log(f"  logged {losses}")
+    if not losses or not all(math.isfinite(v) for _, _, v in losses):
+        fail(f"non-finite or missing losses: {losses}")
+    ckpt = os.path.join(TRAIN_RUN_DIR, "seq2seqL1_model",
+                        "checkpoint_iter00000008.pt")
+    if not os.path.exists(ckpt):
+        fail(f"no checkpoint at {ckpt}")
+    before = dict(initial.named_parameters())
+    unchanged = [n for n, p in state.actor.named_parameters()
+                 if p.requires_grad and torch.equal(p.detach().cpu(),
+                                                    before[n].detach())]
+    # the inpaint and white heads feed nothing differentiable: their
+    # params are zero / ignored, so they get no gradient
+    stray = [n for n in unchanged
+             if not n.startswith(("executor.inpaint_op",
+                                  "executor.white_op"))]
+    log(f"  trainable tensors unchanged after 8 steps: {unchanged}")
+    if stray:
+        fail(f"training left these tensors unchanged: {stray}")
+    return state, launches
+
+
+def train_timing_phase(state):
+    """Each phase's step time on batches already on the card; the
+    episode step through the fused kernels and through the bank, in
+    turns (fused, bank, bank, fused)."""
+    ds = SyntheticFiveK(n=64, img_size=128, seed=5)
+    nb = next(ds.batches(64, 1, shuffle=False))
+    sup = device_put_batch({k: nb[k] for k in ("x", "y", "img_x", "img_y",
+                                               "gt_params")}, "cuda")
+    epi = device_put_batch({"x": nb["x"], "img_x": nb["img_x"],
+                            "gt_img": nb["img_y"][:, -1]}, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def timed(fn, n=6, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    s_ms = statistics.median(timed(lambda: loop.supervised_step(state, sup)))
+    f1 = timed(lambda: loop.episode_step(state, epi, gen, fused_exec=True))
+    b1 = timed(lambda: loop.episode_step(state, epi, gen, fused_exec=False))
+    b2 = timed(lambda: loop.episode_step(state, epi, gen, fused_exec=False))
+    f2 = timed(lambda: loop.episode_step(state, epi, gen, fused_exec=True))
+    f_ms, b_ms = statistics.median(f1 + f2), statistics.median(b1 + b2)
+    img_s = 2 * 64 / (s_ms + f_ms) * 1e3
+    log(f"train step times, b64 128 px, ModelConfig(), TF32 off (host "
+        f"clock around each step, synchronised; medians of 6 and 2x6 after "
+        f"2 warm-ups): supervised {s_ms:.2f} ms, episode fused {f_ms:.2f} "
+        f"ms, episode bank {b_ms:.2f} ms; {img_s:.1f} images/s over one "
+        f"supervised and one fused episode step")
+    return {"sup_ms": s_ms, "epi_fused_ms": f_ms, "epi_bank_ms": b_ms,
+            "img_s": img_s}
+
+
+# -- phase 7 ------------------------------------------------------------------
+def card_vs_cpu_phase():
+    """One sampled episode step of a full-width actor, the same weights
+    and Gumbel noise, through the kernels on the card and the plain
+    versions on the CPU: the same loss within 1e-5; all gradients together
+    within 1e-2 of their norm, and each tensor's within 5e-2 of its own
+    norm plus 1e-6 of the whole; BN statistics within 1e-4.
+
+    The gradient bounds are f32 rounding: this step in f32 against f64 on
+    the CPU differs by 1.2e-3 of the whole gradient's norm and by up to
+    7.3e-3 of one tensor's (measured). Convolutions summed in other orders
+    (cuDNN against oneDNN) pass through train-mode BatchNorm over 8 images
+    and back through 5 rollout steps. vis_encoder.fc.bias feeds bn1, so
+    its true gradient is 0 and both sides hold rounding noise (1e-19 in
+    f64, 7e-11 in f32): the 1e-6 floor covers it."""
+    vocab = synthetic_vocab()
+    cfg = ModelConfig()
+    actor = Actor(cfg, OperatorConfig(), len(vocab),
+                  generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        actor.executor.color_op.fc2.bias += 1.0
+        actor.executor.tone_op.fc2.bias += 1.0
+    cpu_state = loop.TrainState(copy.deepcopy(actor))
+    card_state = loop.TrainState(actor.cuda())
+    ds = SyntheticFiveK(n=8, img_size=64, seed=9)
+    nb = next(ds.batches(8, 1, shuffle=False))
+    batch = {"x": nb["x"], "img_x": nb["img_x"], "gt_img": nb["img_y"][:, -1]}
+    shape = (8, cfg.op_vocab_size)
+    g = torch.Generator().manual_seed(11)
+    draws = [-torch.log(-torch.log(torch.rand(shape, generator=g)
+                                   .clamp_min(1e-38)))
+             for _ in range(cfg.decoder_max_len)]
+    outs = {}
+    for name, st, dev in (("card", card_state, "cuda"),
+                          ("cpu", cpu_state, "cpu")):
+        it = iter(draws)
+        m = loop.episode_step(st, device_put_batch(batch, dev),
+                              noise_fn=lambda s, it=it, dev=dev:
+                              next(it).to(dev), fused_exec=True)
+        outs[name] = float(m["L1_loss"])
+    lc, lp = outs["card"], outs["cpu"]
+    pairs = [(n, pc.grad.double().cpu(), pp.grad.double())
+             for (n, pc), (_, pp) in zip(card_state.actor.named_parameters(),
+                                         cpu_state.actor.named_parameters())
+             if pc.requires_grad]
+    total = math.sqrt(sum(float((gp * gp).sum()) for _, _, gp in pairs))
+    diff = math.sqrt(sum(float(((gc - gp) ** 2).sum())
+                         for _, gc, gp in pairs))
+    # each tensor's error over its bound; > 1 fails
+    per = sorted(((float((gc - gp).norm()) / (0.05 * float(gp.norm())
+                                              + 1e-6 * total), n)
+                  for n, gc, gp in pairs), reverse=True)
+    stats = max(float((bc.cpu() - bp).abs().max()) for (n, bc), (_, bp) in
+                zip(card_state.actor.named_buffers(),
+                    cpu_state.actor.named_buffers())
+                if "running" in n)
+    log(f"card vs CPU episode step (b8, 64 px, full width, same noise): "
+        f"L1 {lc:.7f} vs {lp:.7f}; gradients ||card - cpu|| / ||cpu|| "
+        f"{diff / total:.2e} over all {len(pairs)} tensors; worst tensors' "
+        f"error / bound {[(n, round(r, 4)) for r, n in per[:3]]}; BN running "
+        f"stats max diff {stats:.2e}")
+    if not (abs(lc - lp) <= 1e-5 * abs(lp) + 1e-7 and diff <= 1e-2 * total
+            and per[0][0] <= 1.0 and stats <= 1e-4):
+        fail("the card's episode step disagrees with the CPU's")
+    return lc
+
+
 def main():
     smi = device_phase()
     build_phase()
     k = kernel_phase()
-    launches = serve_phase()
+    sb = step_kernel_phase()
+    serve_launches = serve_phase()
+    state, train_launches = train_phase()
+    t = train_timing_phase(state)
+    card_vs_cpu_phase()
+    chain_by_path = {"serve": serve_launches,
+                     "train": train_launches["chain"]}
     kernels = {"kernels": [{
         "name": "chain", "route": "cuda",
         "source": "t2onet_tpu_torch/csrc/chain.cu",
         "replaces": "t2onet_tpu/ops/pallas_fused.py:270",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"]}]}
+        "launches": sum(chain_by_path.values()),
+        "launches_by_path": chain_by_path,
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"]}, {
+        "name": "step_bwd", "route": "cuda",
+        "source": "t2onet_tpu_torch/csrc/step_bwd.cu",
+        "replaces": "t2onet_tpu/ops/pallas_fused.py:402",
+        "launches": train_launches["step_bwd"],
+        "launches_by_path": {"serve": 0,
+                             "train": train_launches["step_bwd"]},
+        "max_abs_err": sb["max_abs_err"],
+        "d_params_rel_err": sb["param_rel_err"],
+        "ms": sb["ms"], "kernel_ms": sb["ms"], "plain_ms": sb["plain_ms"],
+        "ms_b128_512": sb["ms_b128_512"],
+        "plain_ms_b128_512": sb["plain_ms_b128_512"]}],
+        "train": t}
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,157 @@
+"""FiveK trainer: alternating supervised / end-to-end-L1 iterations
+(counterpart of `t2onet_tpu.cli.train_fivek`).
+
+Odd iterations are teacher-forced (op NLL + param MSE), even ones a
+sampled free rollout with L1 to the ground truth; one Adam over
+everything; periodic validation and best-checkpoint tracking. On a CUDA
+device the episode phase executes each rollout step through the fused
+step kernels (`--fused_exec`, on by default there).
+
+Usage (synthetic, no image files needed):
+  python -m t2onet_tpu_torch.cli.train_fivek --synthetic --num_iters 200 \\
+      --batch_size 16 --img_size 64
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import os
+import time
+
+import numpy as np
+import torch
+
+from t2onet_tpu_torch.cli import common
+from t2onet_tpu_torch.data.loader import Prefetcher, device_put_batch
+from t2onet_tpu_torch.train.checkpoint import CheckpointManager
+from t2onet_tpu_torch.train.loop import (TrainState, episode_step,
+                                         eval_episode, supervised_step)
+
+
+def evaluate(actor, val_ds, batch_size: int, n_batches: int, device) -> float:
+    dists, init_dists = [], []
+    for batch in val_ds.batches(batch_size, n_batches, shuffle=False):
+        b = device_put_batch({"x": batch["x"], "img_x": batch["img_x"],
+                              "gt": batch["img_y"][:, -1]}, device)
+        pred, _ = eval_episode(actor, b)
+        dists.append(float((pred - b["gt"]).abs().mean()))
+        init_dists.append(float((b["img_x"] - b["gt"]).abs().mean()))
+    print(f"validation init L1 {np.mean(init_dists):.4f}  "
+          f"L1 {np.mean(dists):.4f}")
+    return float(np.mean(dists))
+
+
+def train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    common.add_base_args(p)
+    common.add_train_args(p)
+    p.add_argument("--fused_exec", type=int, default=-1, choices=(-1, 0, 1),
+                   help="episode phase executes ops through the fused step "
+                        "kernels (selected branch only, forward and "
+                        "backward) instead of the one-hot bank. -1 "
+                        "(default): on for a CUDA device, off on the CPU")
+    return p
+
+
+def main(argv=None):
+    """Train; returns the final TrainState."""
+    a = train_parser().parse_args(argv)
+    device = torch.device(a.device)
+    run_dir = common.resolve_run_dir(a)
+
+    train_ds, vocab2id = common.build_dataset_and_vocab(a, "train")
+    val_ds = common.build_dataset_and_vocab(a, "val")[0]
+    actor, _ = common.build_actor(a, len(vocab2id))
+    state = TrainState(actor.to(device), learning_rate=a.learning_rate)
+    n_params = sum(x.numel() for x in actor.parameters())
+    print(f"model: {n_params / 1e6:.2f}M params on {device}")
+
+    ckpt = CheckpointManager(os.path.join(run_dir, "seq2seqL1_model"),
+                             max_to_keep=a.max_keep_ckpts or None)
+    # the episode phase's Gumbel draws; its state rides in the checkpoints
+    gen = torch.Generator(device=device).manual_seed(a.manual_seed + 1)
+    start_itr = 1
+    if a.resume:
+        try:
+            ckpt.restore(state, "latest", generator=gen)
+            start_itr = state.step + 1
+            print(f"resumed from iter {state.step}")
+        except FileNotFoundError:
+            print("--resume: no checkpoint found, starting fresh")
+
+    logger = common.ScalarLogger(run_dir)
+    fused = (device.type == "cuda" if a.fused_exec == -1
+             else bool(a.fused_exec))
+    print(f"episode executor: "
+          f"{'fused step kernels' if fused else 'one-hot bank'}")
+
+    stage_itr = itertools.count(start_itr)
+
+    def stage(b):
+        # phase-aware transfer: this runs on the prefetch thread in
+        # production order, so it knows each batch's phase and ships only
+        # what that phase reads (the episode phase: img_x and the final
+        # teacher image, not the whole img_y stack)
+        sup = next(stage_itr) % 2 == 1
+        if sup:
+            keep = {k: b[k] for k in ("x", "y", "img_x", "img_y",
+                                      "gt_params")}
+        else:
+            keep = {"x": b["x"], "img_x": b["img_x"],
+                    "gt_img": b["img_y"][:, -1]}
+        return sup, device_put_batch(keep, device)
+
+    n_left = max(a.num_iters - start_itr + 1, 0)
+    it = Prefetcher(train_ds.batches(a.batch_size, n_left, shuffle=True),
+                    to_device=stage, depth=2)
+    # metric sums stay on the device between prints
+    keys = ("op_loss", "param_loss", "L1_loss")
+    sums = {k: torch.zeros((), device=device) for k in keys}
+    counts = {k: 0 for k in keys}
+    tik = time.time()
+    try:
+        for itr, (sup, batch) in enumerate(it, start=start_itr):
+            if sup:
+                m = supervised_step(state, batch)
+            else:
+                m = episode_step(state, batch, generator=gen, sample=True,
+                                 fused_exec=fused)
+            for k, v in m.items():
+                if k in sums:
+                    sums[k] = sums[k] + v
+                    counts[k] += 1
+
+            if itr % a.print_every == 0:
+                avg = {k: float(sums[k]) / max(counts[k], 1) for k in keys}
+                sums = {k: torch.zeros((), device=device) for k in keys}
+                counts = {k: 0 for k in keys}
+                dt = (time.time() - tik) / a.print_every
+                tik = time.time()
+                print(f"iter {itr:6d}/{a.num_iters} op {avg['op_loss']:.3f} "
+                      f"param {avg['param_loss']:.3f} L1 {avg['L1_loss']:.3f} "
+                      f"{dt * 1e3:.0f} ms/it", flush=True)
+                logger.log(itr, **avg)
+
+            if itr % a.checkpoint_every == 0 or itr >= a.num_iters:
+                if a.val_batches > 0:
+                    val = evaluate(actor, val_ds, min(a.batch_size, 16),
+                                   a.val_batches, device)
+                    best = ckpt.save(state, itr, val, generator=gen)
+                    logger.log(itr, val_L1=val)
+                    if best:
+                        print(f"best model at iter {itr} "
+                              f"(val L1 {val:.4f})")
+                else:
+                    ckpt.save(state, itr, None, generator=gen)
+            if itr >= a.num_iters:
+                break
+    finally:
+        it.close()
+        logger.close()
+    print("training done")
+    return state
+
+
+if __name__ == "__main__":
+    main()

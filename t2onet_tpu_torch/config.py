@@ -69,3 +69,32 @@ class ModelConfig:
     def decoder_hidden(self) -> int:
         """Decoder hidden = 2 * encoder hidden for the bi-encoder."""
         return self.hidden_size * (2 if self.bidirectional else 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (batch 64, 10k iterations, Adam lr 1e-3).
+    lam1 / lam2 are declared but unused, as in the JAX package: the
+    trainer's losses are a plain op_loss + param_loss and a plain L1."""
+
+    batch_size: int = 64
+    num_iters: int = 10_000
+    learning_rate: float = 1e-3
+    explore_prob: float = 0.05
+    entropy_factor: float = 0.05
+    print_every: int = 100
+    checkpoint_every: int = 1000
+    train_img_size: int = 128
+    seed: int = 10
+    lam1: float = 1.0
+    lam2: float = 5.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    operators: OperatorConfig = OperatorConfig()
+    model: ModelConfig = ModelConfig()
+    train: TrainConfig = TrainConfig()
+    dataset: str = "FiveK"
+    session: int = 1
+    vocab_size: int = FIVEK_VOCAB_SIZE

@@ -1,1 +1,2 @@
-"""Host-side request handling."""
+"""Host-side data: the tokenizer, the synthetic dataset, batch iteration
+and the prefetching loader."""

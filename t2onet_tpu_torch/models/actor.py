@@ -1,7 +1,9 @@
 """The actor: request + image -> op program (counterpart of
-`t2onet_tpu.models.actor`). This slice ports the greedy eval-mode
-rollout that serving runs; the teacher-forced pass, sampling and the RL
-step come with the training slice.
+`t2onet_tpu.models.actor`): the teacher-forced pass of supervised
+training and the free rollout, greedy or sampled, executed through the
+bank or through the fused step kernels. BatchNorm follows the module's
+mode: `actor.train()` for training, `actor.eval()` for serving and
+validation. The RL step waits for a later slice.
 
 Module names are the reference checkpoint's (`vis_encoder`, `bn1`,
 `lang_encoder`, `decoder`, `executor.<op>_op.fc1/fc2`), so
@@ -17,12 +19,14 @@ from torch import nn
 import torch.nn.functional as F
 
 from t2onet_tpu_torch.config import ModelConfig, OperatorConfig
-from t2onet_tpu_torch.models.common import init_torch_defaults
+from t2onet_tpu_torch.models.common import FlaxBatchNorm1d, init_torch_defaults
 from t2onet_tpu_torch.models.decoder import DecoderStep
 from t2onet_tpu_torch.models.encoder import RNNEncoder
 from t2onet_tpu_torch.models.resnet import ResNet
 from t2onet_tpu_torch.ops import bank
+from t2onet_tpu_torch.ops.chain import vocab_ops_to_slots
 from t2onet_tpu_torch.ops.operators import OP_NAMES, PARAM_COUNTS
+from t2onet_tpu_torch.ops.step import fused_step
 
 # Ops the rollout may pick: blocks <NONE>, <START>, inpaint_obj, color_bg
 # (vocab order <NONE> <START> <END> brightness contrast saturation hue
@@ -41,6 +45,15 @@ def _renorm_masked_probs(probs, op_mask, n_vocab):
     end = F.one_hot(torch.full((probs.shape[0],), END_OP_ID,
                                device=probs.device), n_vocab).to(probs.dtype)
     return torch.where(total > 0.0, probs / (total + 1e-30), end)
+
+
+def gumbel_noise(shape, generator: torch.Generator):
+    """Standard Gumbel draws on the generator's device, as
+    `jax.random.gumbel`: -log(-log(u)), u uniform on [tiny, 1). torch's
+    generators give other numbers than JAX's keys from the same seed."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = torch.clamp_min(u, torch.finfo(u.dtype).tiny)
+    return -torch.log(-torch.log(u))
 
 
 class _OpHead(nn.Module):
@@ -87,17 +100,18 @@ class Actor(nn.Module):
         """Weights are drawn on the CPU from `generator` by torch's
         default init; move the actor with `.to(device)`."""
         super().__init__()
-        if cfg.vis_bf16 or cfg.discrete_param:
+        if cfg.vis_bf16 or cfg.discrete_param or cfg.fix_input_embedding:
             raise NotImplementedError(
-                "vis_bf16 and discrete_param are not ported yet")
+                "vis_bf16, discrete_param and fix_input_embedding are not "
+                "ported yet")
         self.cfg = cfg
         self.opcfg = opcfg
         self.explore_prob = explore_prob
         with torch.device("meta"):
             self.vis_encoder = ResNet(cfg.resnet_depth, cfg.vis_feat_dim,
                                       cfg.resnet_widths)
-            self.bn1 = nn.BatchNorm1d(cfg.vis_feat_dim, eps=1e-5,
-                                      momentum=0.1)
+            self.bn1 = FlaxBatchNorm1d(cfg.vis_feat_dim, eps=1e-5,
+                                       momentum=0.1)
             self.lang_encoder = RNNEncoder(vocab_size, cfg.word_vec_dim,
                                            cfg.hidden_size, cfg.n_layers,
                                            pad_id=cfg.null_id)
@@ -121,21 +135,63 @@ class Actor(nn.Module):
             .expand_as(enc_valid)
 
     def vis_feat(self, img):
-        """ResNet feature -> BN1d -> ReLU."""
+        """ResNet feature -> BN1d -> ReLU (BatchNorm in the module's mode)."""
         return F.relu(self.bn1(self.vis_encoder(img)))
 
-    def episode(self, x, img_x):
-        """Greedy rollout of decoder_max_len steps. Each step encodes the
-        current image, decodes one op (explore smoothing, hard mask,
-        argmax, no-repeat update), predicts its params and executes it
-        through the bank.
+    def supervised(self, x, y, img_x, img_y):
+        """Teacher-forced pass. All n_dec = T-1 visual encodings (img_x,
+        then the teacher images) run as one batched ResNet forward, so in
+        train mode BatchNorm's statistics are over B * n_dec images, as in
+        the JAX package.
+
+        :param x: (B, L) request tokens.
+        :param y: (B, T) op sequence [START, op*, END, NONE...].
+        :param img_x: (B, 3, H, W); img_y (B, T-1, 3, H, W) teacher images.
+        :return: (None, pred_params (B, T-2, 24), op_logprobs (B, T-1, n_cls))
+            -- the first slot is where the JAX package returns executed
+            images on request; no loss reads them.
+        """
+        enc_out, enc_hidden, enc_valid = self.lang_encoder(x)
+        enc_valid = self._attn_mask(enc_valid)
+        carry = self.decoder.init_carry(enc_hidden)
+        n_dec = y.shape[1] - 1
+        b = img_x.shape[0]
+        steps = torch.cat([img_x[:, None], img_y[:, :n_dec - 1]], dim=1)
+        feats = self.vis_feat(steps.reshape((b * n_dec,) + steps.shape[2:]))
+        feats = feats.reshape(b, n_dec, -1)
+        logprobs, params = [], []
+        for i in range(1, n_dec + 1):
+            logprob, carry, _, context = self.decoder(
+                y[:, i - 1], carry, enc_out, enc_valid, feats[:, i - 1])
+            logprobs.append(logprob)
+            if i == n_dec:
+                break
+            params.append(bank.select_params(y[:, i], self.executor(context)))
+        return None, torch.stack(params, dim=1), torch.stack(logprobs, dim=1)
+
+    def episode(self, x, img_x, sample: bool = False, generator=None,
+                noise_fn=None, fused_exec: bool = False):
+        """Free rollout of decoder_max_len steps. Each step encodes the
+        current image, decodes one op (explore smoothing, hard mask, then
+        argmax, or with `sample` a Gumbel-max draw over log(probs + 1e-30)
+        as `jax.random.categorical` draws; no-repeat update), predicts its
+        params and executes it: through the bank, or with `fused_exec`
+        through `ops.step.fused_step` (only the selected op, forward and
+        backward; the chain and step_bwd kernels on a CUDA tensor).
 
         :param x: (B, L) request tokens; img_x (B, 3, H, W).
+        :param generator: torch.Generator on the actor's device for the
+            Gumbel draws (sample=True).
+        :param noise_fn: optional fn(shape) -> (B, n_cls) Gumbel noise in
+            place of draws from `generator` (tests feed JAX's draws).
         :return: dict with imgs (B, S, 3, H, W), ops (B, S),
             params (B, S, 24), logprobs (B, S, n_cls), attn (B, S, L).
         """
         cfg = self.cfg
         b = x.shape[0]
+        if sample and generator is None and noise_fn is None:
+            raise ValueError("episode(sample=True) needs a generator or a "
+                             "noise_fn: no silent default randomness")
         enc_out, enc_hidden, enc_valid = self.lang_encoder(x)
         enc_valid = self._attn_mask(enc_valid)
         carry = self.decoder.init_carry(enc_hidden)
@@ -153,11 +209,23 @@ class Actor(nn.Module):
             probs = (torch.exp(logprob) * (1.0 - self.explore_prob)
                      + self.explore_prob)
             probs = _renorm_masked_probs(probs, op_mask, cfg.op_vocab_size)
-            pred_op = torch.argmax(probs, dim=-1)
+            if sample:
+                shape = probs.shape
+                noise = (noise_fn(shape) if noise_fn is not None
+                         else gumbel_noise(shape, generator))
+                pred_op = torch.argmax(
+                    noise + torch.log(probs.detach() + 1e-30), dim=-1)
+            else:
+                pred_op = torch.argmax(probs, dim=-1)
             op_mask = op_mask * (1.0 - F.one_hot(
                 pred_op, cfg.op_vocab_size).to(op_mask.dtype))
-            img, chosen = bank.execute_bank(img, pred_op,
-                                            self.executor(context))
+            per_op = self.executor(context)
+            if fused_exec:
+                chosen = bank.select_params(pred_op, per_op)
+                img = fused_step(img, vocab_ops_to_slots(pred_op[:, None])
+                                 [:, 0], chosen)
+            else:
+                img, chosen = bank.execute_bank(img, pred_op, per_op)
             for key, val in (("imgs", img), ("ops", pred_op),
                              ("params", chosen), ("logprobs", logprob),
                              ("attn", attn)):

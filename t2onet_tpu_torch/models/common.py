@@ -1,4 +1,5 @@
-"""Shared cells and the seeded torch-default initialisation."""
+"""Shared cells, flax-semantics BatchNorm, and the seeded torch-default
+initialisation."""
 
 from __future__ import annotations
 
@@ -6,6 +7,51 @@ import math
 
 import torch
 from torch import nn
+import torch.nn.functional as F
+
+
+class _FlaxBatchNorm:
+    """BatchNorm whose train-mode running statistics follow
+    `flax.linen.BatchNorm(momentum=0.9)`: the batch variance is the biased
+    one, mean(x^2) - mean(x)^2 clipped at 0, and each update keeps 0.9 of
+    the old value (torch would use the unbiased variance). Normalisation
+    uses the batch statistics, with gradients through them, as torch's
+    does; eval mode and the state_dict names are torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        dims = [0] + list(range(2, x.ndim))
+        with torch.no_grad():
+            xd = x.detach()
+            mean = xd.mean(dims)
+            var = torch.clamp_min((xd * xd).mean(dims) - mean * mean, 0.0)
+            keep = 1.0 - self.momentum
+            self.running_mean.copy_(keep * self.running_mean
+                                    + (1.0 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var
+                                   + (1.0 - keep) * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+class FlaxBatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    pass
+
+
+class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+def freeze_second_lstm_bias(lstm: nn.LSTM):
+    """The JAX package's LSTM has one bias; torch's has b_ih and b_hh. Keep
+    b_ih as that bias and hold b_hh at zero and out of training, so that
+    an optimizer step moves the sum as JAX moves its one bias."""
+    for name, p in lstm.named_parameters():
+        if name.startswith("bias_hh"):
+            p.requires_grad_(False)
 
 
 def lstm_step(x, carry, w_ih, w_hh, b_ih, b_hh):
@@ -35,8 +81,8 @@ def init_torch_defaults(module: nn.Module, generator: torch.Generator):
     """Draw every parameter as torch's own defaults do, from `generator`
     (a CPU generator, so one seed gives the same weights on any device):
     Linear and Conv2d U(+-1/sqrt(fan_in)) for weight and bias, LSTM
-    U(+-1/sqrt(hidden)), Embedding N(0, 1), BatchNorm weight 1, bias 0,
-    running mean 0 and variance 1."""
+    U(+-1/sqrt(hidden)) with the frozen b_hh then set to 0, Embedding
+    N(0, 1), BatchNorm weight 1, bias 0, running mean 0 and variance 1."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
@@ -46,8 +92,10 @@ def init_torch_defaults(module: nn.Module, generator: torch.Generator):
                 _uniform(m.bias, lim, generator)
         elif isinstance(m, nn.LSTM):
             lim = 1.0 / math.sqrt(m.hidden_size)
-            for p in m.parameters():
+            for name, p in m.named_parameters():
                 _uniform(p, lim, generator)
+                if name.startswith("bias_hh"):
+                    p.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
         elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):

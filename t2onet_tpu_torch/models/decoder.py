@@ -9,7 +9,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from t2onet_tpu_torch.models.common import lstm_step
+from t2onet_tpu_torch.models.common import freeze_second_lstm_bias, lstm_step
 
 
 class Attention(nn.Module):
@@ -27,6 +27,7 @@ class DecoderStep(nn.Module):
         self.embedding = nn.Embedding(op_vocab_size, word_vec_dim)
         self.rnn = nn.LSTM(word_vec_dim + hidden_size, hidden_size,
                            num_layers=n_layers, batch_first=True)
+        freeze_second_lstm_bias(self.rnn)
         self.vis_linear = nn.Linear(vis_dim, hidden_size)
         self.out_linear = nn.Linear(hidden_size, op_vocab_size)
         self.attention = Attention(hidden_size) if use_attention else None

@@ -10,6 +10,8 @@ import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
+from t2onet_tpu_torch.models.common import freeze_second_lstm_bias
+
 
 class RNNEncoder(nn.Module):
     def __init__(self, vocab_size: int, word_vec_dim: int = 300,
@@ -20,6 +22,7 @@ class RNNEncoder(nn.Module):
         self.embedding = nn.Embedding(vocab_size, word_vec_dim)
         self.rnn = nn.LSTM(word_vec_dim, hidden_size, num_layers=n_layers,
                            batch_first=True, bidirectional=True)
+        freeze_second_lstm_bias(self.rnn)
 
     def forward(self, tokens):
         """tokens (B, L) int, zero-padded after the request.

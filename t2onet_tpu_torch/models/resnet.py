@@ -11,6 +11,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from t2onet_tpu_torch.models.common import FlaxBatchNorm2d
+
 _BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 
 
@@ -24,7 +26,7 @@ def blocks_per_stage(depth: int):
 
 def _bn(c):
     # flax momentum 0.9 keeps 0.9 of the old running stat: torch's 0.1
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return FlaxBatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

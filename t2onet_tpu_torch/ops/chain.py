@@ -19,28 +19,20 @@ in the same order, rounded on its own, so the two agree to a few ulp.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
+
+from t2onet_tpu_torch.ops import build
+from t2onet_tpu_torch.ops.color import clip
 
 MAX_PARAM = 24
 CURVE_STEPS = 8
 TILE = 32                     # output tile side of one kernel block
 SMEM_LIMIT = 232448           # shared memory one Hopper block can use
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "chain.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_build")
-
-# Kernel launches by wrapper, incremented only where a kernel is launched.
-LAUNCHES = {"chain": 0}
-
-_lib = None
-BUILD_LOG = {}
+# Kernel launches by wrapper, incremented only where a kernel is launched
+# ("step_bwd" by ops/step.py:step_bwd).
+LAUNCHES = {"chain": 0, "step_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -48,7 +40,7 @@ BUILD_LOG = {}
 # ---------------------------------------------------------------------------
 
 def _clip01(x):
-    return torch.clamp(x, 0.0, 1.0)
+    return clip(x, 0.0, 1.0)
 
 
 def _scalar(p):
@@ -68,7 +60,7 @@ def _saturation(img, p):
     mn = torch.minimum(torch.minimum(img[:, 0:1], img[:, 1:2]), img[:, 2:3])
     d = v - mn
     ve = v + 1e-8
-    num = torch.minimum(torch.clamp(d * (1.0 + _scalar(p)), min=0.0), ve) * s
+    num = clip(d * (1.0 + _scalar(p)), 0.0, ve) * s
     ratio = num / (d * s + (1e-12 * s) * ve)
     return v - ratio * (v - img)
 
@@ -105,8 +97,8 @@ def _curve(x, knots):
     s = CURVE_STEPS / csum
     out = (s * p[:, :, CURVE_STEPS - 1]) * x
     for j in range(1, CURVE_STEPS):
-        out = out - (s * (p[:, :, j] - p[:, :, j - 1])) * torch.clamp(
-            x, max=j / CURVE_STEPS)
+        out = out - (s * (p[:, :, j] - p[:, :, j - 1])) * torch.minimum(
+            x, x.new_full((), j / CURVE_STEPS))
     return out
 
 
@@ -161,7 +153,7 @@ def vocab_ops_to_slots(op_vocab_ids):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel: build at first use, bind with ctypes
+# the CUDA kernel: built at first use (ops/build.py), bound with ctypes
 # ---------------------------------------------------------------------------
 
 def smem_bytes(k: int) -> int:
@@ -172,54 +164,14 @@ def smem_bytes(k: int) -> int:
     return 2 * 3 * side * side * 4 + k * MAX_PARAM * 4 + k * 4
 
 
-def _find_nvcc() -> str:
-    """nvcc on PATH, else under CUDA_HOME (default /usr/local/cuda)."""
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the chain kernel cannot be built")
-    return nvcc
-
-
-def build() -> str:
-    """Compile csrc/chain.cu for sm_90a into the package's _build
-    directory (named by the source's hash, so an edit rebuilds) and
-    return the library's path. BUILD_LOG keeps the compiler's report."""
-    with open(_CSRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(_BUILD_DIR, f"libt2o_chain_{digest}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    # no --use_fast_math: the brightness and saturation quotients need
-    # IEEE division; -fmad=false rounds every multiply and add on its own,
-    # as the plain version's separate tensor ops do
-    cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-           "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _CSRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG["cmd"] = " ".join(cmd)
-    BUILD_LOG["output"] = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{BUILD_LOG['output']}")
-    os.replace(tmp, so)
-    return so
-
-
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
+    lib = build.library("chain")
+    if lib.t2o_chain_launch.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
         lib.t2o_chain_launch.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.t2o_chain_launch.restype = i
-        lib.t2o_error_string.argtypes = [i]
-        lib.t2o_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return lib
 
 
 def _check(imgs, op_slots, params):

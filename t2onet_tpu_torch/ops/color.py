@@ -7,6 +7,17 @@ import math
 import torch
 
 
+def clip(x, lo, hi):
+    """jnp.clip's form, minimum(maximum(x, lo), hi): the same values as
+    torch.clamp, but a tie at a bound splits the gradient in half as in
+    JAX (torch.clamp passes all of it). lo and hi are floats or tensors."""
+    if not torch.is_tensor(lo):
+        lo = x.new_full((), lo)
+    if not torch.is_tensor(hi):
+        hi = x.new_full((), hi)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def lerp(a, b, t):
     return (1.0 - t) * a + t * b
 

@@ -9,7 +9,7 @@ import math
 
 import torch
 
-from t2onet_tpu_torch.ops.color import lerp, rgb2lum
+from t2onet_tpu_torch.ops.color import clip, lerp, rgb2lum
 
 OP_NAMES = (
     "brightness",
@@ -37,19 +37,19 @@ def mask_blend(out, img, mask=None):
     """Blend the processed image into the unmasked original, then clamp."""
     if mask is not None:
         out = out * mask + img * (1.0 - mask)
-    return torch.clamp(out, 0.0, 1.0)
+    return clip(out, 0.0, 1.0)
 
 
 def brightness(img, param):
     """HSV value scale computed in RGB: rgb * clip(v(1+p)) / v."""
     v = torch.amax(img, dim=1, keepdim=True)
-    k = torch.clamp(v * (1.0 + _s(param)), 0.0, 1.0) / (v + 1e-12)
+    k = clip(v * (1.0 + _s(param)), 0.0, 1.0) / (v + 1e-12)
     return img * k
 
 
 def contrast(img, param):
     """Cosine-luminance contrast curve."""
-    lum = torch.clamp(rgb2lum(img), 0.0, 1.0)
+    lum = clip(rgb2lum(img), 0.0, 1.0)
     contrast_lum = -torch.cos(math.pi * lum) * 0.5 + 0.5
     contrast_img = img / (lum + 1e-6) * contrast_lum
     return lerp(img, contrast_img, _s(param))
@@ -60,7 +60,7 @@ def saturation(img, param):
     v = torch.amax(img, dim=1, keepdim=True)
     mn = torch.amin(img, dim=1, keepdim=True)
     s = (v - mn) / (v + 1e-8)
-    ratio = torch.clamp(s * (1.0 + _s(param)), 0.0, 1.0) / (s + 1e-12)
+    ratio = clip(s * (1.0 + _s(param)), 0.0, 1.0) / (s + 1e-12)
     return v - ratio * (v - img)
 
 
@@ -71,8 +71,8 @@ def _piecewise_curve(img, curve):
     curve = curve[:, :, :, None, None]                      # (B, C, S, 1, 1)
     curve_sum = curve.sum(2) + 1e-10                        # (B, C, 1, 1)
     steps = torch.arange(s, dtype=img.dtype, device=img.device) / s
-    seg = torch.clamp(img[:, :, None] - steps[None, None, :, None, None],
-                      0.0, 1.0 / s)
+    seg = clip(img[:, :, None] - steps[None, None, :, None, None],
+               0.0, 1.0 / s)
     total = (seg * curve).sum(2)
     return total * s / curve_sum
 
@@ -121,3 +121,21 @@ def inpaint(img, param, inpaint_fn=None):
     if inpaint_fn is not None:
         return inpaint_fn(img)
     return img
+
+
+_OP_FNS = {"brightness": brightness, "contrast": contrast,
+           "saturation": saturation, "color": color_curve, "tone": tone_curve,
+           "sharpness": sharpness, "white": white}
+
+
+def apply_op_by_index(img, op_index: int, param, mask=None,
+                      inpaint_fn=None):
+    """Apply executor op `op_index` with masking and the clamp; a negative
+    index is the identity of the special tokens, and the inpaint slot runs
+    `inpaint_fn` (identity without one)."""
+    if op_index < 0:
+        return img
+    name = OP_NAMES[op_index]
+    if name == "inpaint":
+        return mask_blend(inpaint(img, param, inpaint_fn), img, mask)
+    return mask_blend(_OP_FNS[name](img, param), img, mask)

@@ -37,6 +37,21 @@ def fixtures(b, h, w, seed=0):
                                 (JPEGS * b)[:b])}
 
 
+def tie_images(b, h, w):
+    """JPEG crops (`jpeg_images`, cycled to b) with patches where JAX's
+    and torch's gradient tie rules differ: exact black and white pixels,
+    gray pixels (three equal channels) and pixels whose two largest
+    channels are equal. Needs h, w >= 8."""
+    out = np.concatenate([jpeg_images(h, w)] * (-(-b // 3)))[:b].copy()
+    out[:, :, 0:2, 0:2] = 0.0                   # black
+    out[:, :, 2:4, 0:2] = 1.0                   # white
+    out[:, :, 4:6, 0:2] = 128.0 / 255.0         # gray
+    out[:, 0, 6:8, 0:2] = 200.0 / 255.0         # r == g > b
+    out[:, 1, 6:8, 0:2] = 200.0 / 255.0
+    out[:, 2, 6:8, 0:2] = 40.0 / 255.0
+    return out
+
+
 def _draw(path, shape, rng):
     """A seeded draw at the scale of torch's default init for the leaf."""
     name = path[-1]

@@ -1,0 +1,309 @@
+"""One supervised and one episode training step of the port
+(t2onet_tpu_torch.train.loop) against the JAX package's jitted steps,
+from one init carried across by the weights bridge, at tiny widths.
+
+Compared after each step: the loss; every gradient (the port's `.grad`
+through `convert_state_dict`, JAX's recovered from Adam's first moment
+after one step, mu = 0.1 g); the BatchNorm running statistics; and the
+Adam-updated parameters. Episode variants: greedy through the bank,
+greedy through the fused step (`fused_exec` against JAX's
+`pallas_exec`, Pallas in interpret mode), and sampled with JAX's own
+Gumbel draws fed to the port. The four repairs of the port's training
+semantics each have a test of their own here: the one trainable LSTM
+bias, flax's BatchNorm statistics, and Adam stepping parameters that got
+no gradient (the tie-gradient repair is in test_torch_step.py).
+
+Tolerances: gradients within 2e-3 of the largest gradient of their
+tensor plus 1e-8, plus rtol 1e-3 (measured up to 1.2e-4 in the
+supervised step and ~1e-3 in the episode step: f32 convolutions summed
+in other orders, through train-mode BatchNorm over as few as 4 images of
+8 channels, back through three rollout steps; a bias whose true
+gradient is 0 carries rounding noise of ~1e-11); BN statistics 1e-5;
+updated parameters 1e-6 wherever the gradient stands clear of that
+tolerance and of Adam's eps (|g| above ten times it and above 1e-6). Adam's first step moves every parameter by
+lr * g / (|g| + eps), so where g is rounding noise (a bias before a
+BatchNorm, whose true gradient is 0) or near eps, the step follows the
+noise, and there only its size, at most lr, is checked."""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import optax
+import pytest
+import torch
+
+from t2onet_tpu.config import ModelConfig as JModelConfig
+from t2onet_tpu.convert import convert_state_dict
+from t2onet_tpu.data.synthetic import SyntheticFiveK as JSyntheticFiveK
+from t2onet_tpu.data.synthetic import synthetic_vocab
+from t2onet_tpu.models.actor import Actor as JActor
+from t2onet_tpu.train import loop as jloop
+from t2onet_tpu_torch.train import loop
+from tests._torch_port import jax_actor, port_actor
+
+torch.set_num_threads(2)
+
+L = 12
+B = 4
+LR = 1e-3
+CFG = JModelConfig.tiny(encoder_max_len=L, decoder_max_len=3)
+V = len(synthetic_vocab())
+
+
+@pytest.fixture(scope="module")
+def init():
+    ds = JSyntheticFiveK(n=8, img_size=16, seed=0, req_max_len=L,
+                         op_max_len=CFG.decoder_max_len)
+    nb = next(ds.batches(B, 1, shuffle=False))
+    batch = {k: nb[k] for k in ("x", "y", "img_x", "img_y", "gt_params")}
+    batch["gt_img"] = nb["img_y"][:, -1]
+    ja, params, stats = jax_actor(CFG, V, batch["x"], batch["img_x"], seed=6,
+                                  knots_near_one=True)
+    return ja, params, stats, batch
+
+
+@pytest.fixture(scope="module")
+def jax_steps(init):
+    """JAX's jitted steps, each built (and so compiled) once per module:
+    "sup", and ("epi", sample, pallas_exec)."""
+    ja = init[0]
+    cache = {}
+
+    def get(name, sample=False, fused=False):
+        key = name if name == "sup" else (name, sample, fused)
+        if key not in cache:
+            cache[key] = (
+                jloop.make_supervised_step(ja, donate=False) if name == "sup"
+                else jloop.make_episode_step(ja, sample=sample, donate=False,
+                                             pallas_exec=fused))
+        return cache[key]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def sup_once(init, jax_steps):
+    """One supervised step from the init in both frameworks."""
+    _, params, stats, batch = init
+    jstate1, jm = jax_steps("sup")(_jax_state(params, stats),
+                                   _j(batch, SUP))
+    pstate = _port_state(params, stats)
+    pm = loop.supervised_step(pstate, _t(batch, SUP))
+    return jstate1, jm, pstate, pm
+
+
+def _jax_state(params, stats):
+    tx = optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8)
+    params = jax.tree_util.tree_map(jnp.asarray, params)
+    return jloop.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                            batch_stats=jax.tree_util.tree_map(
+                                jnp.asarray, stats),
+                            opt_state=tx.init(params), tx=tx)
+
+
+def _port_state(params, stats):
+    return loop.TrainState(port_actor(CFG, V, params, stats),
+                           learning_rate=LR)
+
+
+def _t(batch, keys):
+    return {k: torch.from_numpy(np.asarray(batch[k])) for k in keys}
+
+
+def _j(batch, keys):
+    return {k: jnp.asarray(batch[k]) for k in keys}
+
+
+def _flat(tree):
+    return {jax.tree_util.keystr(k): np.asarray(v) for k, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _port_trees(actor, grads=False):
+    """convert_state_dict of the port's weights (or gradients: zeros for
+    buffers and for parameters without one) -> flat (params, stats)."""
+    sd = {k: v.detach().numpy().copy() for k, v in
+          actor.state_dict().items()}
+    if grads:
+        sd = {k: np.zeros_like(v) for k, v in sd.items()}
+        for n, p in actor.named_parameters():
+            if p.grad is not None:
+                sd[n] = p.grad.numpy()
+    p, s = convert_state_dict(sd, CFG.n_layers)
+    return _flat(p), _flat(s)
+
+
+SUP = ("x", "y", "img_x", "img_y", "gt_params")
+EPI = ("x", "img_x", "gt_img")
+
+
+def _check(pstate, jstate1, p_loss, j_loss, params0):
+    np.testing.assert_allclose(float(p_loss), float(j_loss), rtol=1e-5)
+    jg = _flat(jax.tree_util.tree_map(lambda m: m / 0.1,
+                                      jstate1.opt_state[0].mu))
+    pg, _ = _port_trees(pstate.actor, grads=True)
+    assert sorted(pg) == sorted(jg)
+    new_p, new_s = _port_trees(pstate.actor)
+    old = _flat(params0)
+    jp, js = _flat(jstate1.params), _flat(jstate1.batch_stats)
+    for k in jg:
+        gtol = 2e-3 * np.abs(jg[k]).max() + 1e-8
+        np.testing.assert_allclose(pg[k], jg[k], rtol=1e-3, atol=gtol,
+                                   err_msg=k)
+        clear = np.abs(jg[k]) > max(10 * gtol, 1e-6)
+        np.testing.assert_allclose(new_p[k][clear], jp[k][clear], atol=1e-6,
+                                   rtol=0, err_msg=k)
+        assert (np.abs(new_p[k] - old[k]) <= LR * 1.0001).all(), k
+    for k in js:
+        np.testing.assert_allclose(new_s[k], js[k], atol=1e-5, rtol=0,
+                                   err_msg=k)
+
+
+def test_supervised_step_matches_jax(init, sup_once):
+    params = init[1]
+    jstate1, jm, pstate, pm = sup_once
+    for k in ("op_loss", "param_loss"):
+        np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-5)
+    _check(pstate, jstate1, pm["loss"], jm["loss"], params)
+    assert pstate.step == int(jstate1.step) == 1
+
+
+def _gumbel_draws(key, shape, steps):
+    """The draws `Actor.episode(sample=True)` makes: per step
+    key, sub = split(key), then categorical(sub, ...) = argmax(logits +
+    gumbel(sub))."""
+    draws = []
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        g = jax.random.gumbel(sub, shape)
+        logits = jax.random.normal(jax.random.PRNGKey(7), shape)
+        np.testing.assert_array_equal(
+            np.asarray(jnp.argmax(logits + g, axis=-1)),
+            np.asarray(jax.random.categorical(sub, logits, axis=-1)))
+        draws.append(np.asarray(g))
+    return draws
+
+
+@pytest.mark.parametrize("mode", ["greedy_bank", "greedy_fused",
+                                  "sampled_bank"])
+def test_episode_step_matches_jax(init, jax_steps, mode):
+    _, params, stats, batch = init
+    sample = mode.startswith("sampled")
+    fused = mode.endswith("fused")
+    key = jax.random.PRNGKey(3)
+    jstate1, jm = jax_steps("epi", sample, fused)(
+        _jax_state(params, stats), _j(batch, EPI), key)
+    noise_fn = None
+    if sample:
+        draws = iter(_gumbel_draws(key, (B, CFG.op_vocab_size),
+                                   CFG.decoder_max_len))
+
+        def noise_fn(shape):
+            return torch.from_numpy(next(draws).copy())
+
+    pstate = _port_state(params, stats)
+    pm = loop.episode_step(pstate, _t(batch, EPI), sample=sample,
+                           fused_exec=fused, noise_fn=noise_fn)
+    _check(pstate, jstate1, pm["L1_loss"], jm["L1_loss"], params)
+
+
+def test_adam_steps_parameters_without_gradient(init, jax_steps, sup_once):
+    """Supervised, then episode: the episode phase gives decoder.out_linear
+    no gradient (ops are picked by argmax), and optax still applies the
+    supervised step's momentum to it. The port fills a zero gradient."""
+    _, params, stats, batch = init
+    jstate, _ = jax_steps("epi")(sup_once[0], _j(batch, EPI),
+                                 jax.random.PRNGKey(0))
+    pstate = _port_state(params, stats)
+    loop.supervised_step(pstate, _t(batch, SUP))
+    loop.episode_step(pstate, _t(batch, EPI), sample=False)
+    assert not pstate.actor.decoder.out_linear.weight.grad.any()
+    got, _ = _port_trees(pstate.actor)
+    want = _flat(jstate.params)
+    for k in want:
+        if "out_linear" in k:
+            np.testing.assert_allclose(got[k], want[k], atol=1e-6, rtol=0,
+                                       err_msg=k)
+
+
+def test_lstm_has_one_trainable_bias(sup_once):
+    """An Adam step moves JAX's one LSTM bias by at most lr; the port's
+    bias_hh stays 0 and out of training, so bias_ih moves as JAX's b."""
+    jstate1, _, pstate, _ = sup_once
+    rnns = {"decoder.rnn": jstate1.params["decoder"],
+            "lang_encoder.rnn": jstate1.params["lang_encoder"]}
+    for name, p in pstate.actor.named_parameters():
+        if ".rnn.bias_hh" in name:
+            assert not p.requires_grad and not p.any(), name
+    for k in range(CFG.n_layers):
+        got = pstate.actor.decoder.rnn.__getattr__(f"bias_ih_l{k}")
+        want = np.asarray(rnns["decoder.rnn"][f"lstm_l{k}"]["b"])
+        np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-6)
+        got = pstate.actor.lang_encoder.rnn.__getattr__(
+            f"bias_ih_l{k}_reverse")
+        want = np.asarray(rnns["lang_encoder.rnn"][f"lstm_l{k}_bwd"]["b"])
+        np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-6)
+
+
+@pytest.mark.parametrize("ndim", [2, 4])
+def test_batchnorm_running_stats_match_flax(ndim):
+    """One train-mode forward updates the running mean and variance as
+    flax.linen.BatchNorm(momentum=0.9) does: biased variance, 0.9 of the
+    old value kept. The output is the batch-normalised input."""
+    import flax.linen as fnn
+
+    from t2onet_tpu_torch.models.common import (FlaxBatchNorm1d,
+                                                FlaxBatchNorm2d)
+
+    rng = np.random.default_rng(5)
+    shape = (6, 5) if ndim == 2 else (6, 5, 3, 4)            # torch layout
+    x = (rng.normal(0.3, 1.5, shape)).astype(np.float32)
+    mean0 = rng.normal(0, 0.1, 5).astype(np.float32)
+    var0 = rng.uniform(0.5, 1.5, 5).astype(np.float32)
+    xf = x if ndim == 2 else x.transpose(0, 2, 3, 1)         # flax: NHWC
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9,
+                       epsilon=1e-5)
+    variables = {"params": {"scale": np.ones(5, np.float32),
+                            "bias": np.zeros(5, np.float32)},
+                 "batch_stats": {"mean": mean0, "var": var0}}
+    yf, upd = bn.apply(variables, jnp.asarray(xf), mutable=["batch_stats"])
+    port = (FlaxBatchNorm1d if ndim == 2 else FlaxBatchNorm2d)(
+        5, eps=1e-5, momentum=0.1).train()
+    with torch.no_grad():
+        port.running_mean.copy_(torch.from_numpy(mean0))
+        port.running_var.copy_(torch.from_numpy(var0))
+        y = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(port.running_mean.numpy(),
+                               np.asarray(upd["batch_stats"]["mean"]),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(port.running_var.numpy(),
+                               np.asarray(upd["batch_stats"]["var"]),
+                               atol=1e-6, rtol=0)
+    yf = np.asarray(yf) if ndim == 2 else np.asarray(yf).transpose(0, 3, 1, 2)
+    np.testing.assert_allclose(y, yf, atol=1e-5, rtol=0)
+    port.eval()                         # eval mode reads the running stats
+    with torch.no_grad():
+        ye = port(torch.from_numpy(x)).numpy()
+    rm = port.running_mean.numpy().reshape((1, 5) + (1,) * (ndim - 2))
+    rv = port.running_var.numpy().reshape((1, 5) + (1,) * (ndim - 2))
+    np.testing.assert_allclose(ye, (x - rm) / np.sqrt(rv + 1e-5), atol=1e-5)
+
+
+def test_supervised_losses_position_mask():
+    """Positions past the batch's longest op sequence are left out of the
+    op NLL, as in the JAX package."""
+    rng = np.random.default_rng(0)
+    lp = np.log(rng.dirichlet(np.ones(11), (3, 6))).astype(np.float32)
+    y = np.array([[1, 3, 2, 0, 0, 0, 0], [1, 4, 5, 2, 0, 0, 0],
+                  [1, 2, 0, 0, 0, 0, 0]], np.int32)
+    pp = rng.normal(size=(3, 5, 24)).astype(np.float32)
+    gp = np.where(rng.uniform(size=(3, 5, 24)) > 0.7, 1.0, 0.0).astype(
+        np.float32)
+    want = jloop.supervised_losses(jnp.asarray(lp), jnp.asarray(pp),
+                                   jnp.asarray(y), jnp.asarray(gp))
+    got = loop.supervised_losses(*(torch.from_numpy(a) for a in
+                                   (lp, pp, y, gp)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-6)
