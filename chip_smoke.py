@@ -9,34 +9,58 @@ Phases (any failure exits non-zero):
    matmuls and cuDNN convolutions so that f32 means f32;
 2. build: every kernel source of t2onet_tpu_torch/csrc/ with nvcc, one
    process per source, side by side;
-3. chain kernel against plain: the chain kernel (B1) and its plain
+3. host packages: which of cv2, PIL and h5py import (cv2 must: the GIER
+   trainer reads JPEGs with it; without h5py the GloVe matrix comes from
+   its .npy copy in data_real_gier_acts/);
+4. chain kernel against plain: the chain kernel (B1) and its plain
    PyTorch version on the same tensors on the card, at the serving shapes,
    at the chain benchmark's (bench.py's draw: b128, 512 px, K5) and at
    K=1 as the trainer's fused step runs it (b64, 128 px, and b128 x
    512 px, every slot), max abs error <= 1e-5 (both round every multiply
    and add alone, in the same order), then both timed with CUDA events;
-4. step backward against plain: the step_bwd kernel (B3) and its plain
+5. step backward against plain: the step_bwd kernel (B3) and its plain
    version at the trainer's shape (b64, 128 px, every slot), at
    b128 x 512 px and at odd shapes, on images with exact 0 / 0.5 / 1,
    gray and two-equal-channel patches and saturating brightness: d_img
    max abs error <= 1e-6, d_params max error <= 1e-5 of the image's
    largest d_params entry (both sum per-pixel f32 terms in f64, in
    different orders); both timed, with B1 at K=1 beside them;
-5. serve: a full-width actor (ModelConfig() defaults, 918-token
+6. masked kernels against plain: the masked chain (B2) at b128 x 512 px
+   x K5 (bench.py's draw, a mask binary in one half and fractional in
+   the other), at K=1 at the GIER trainer's b64 x 128 px, at 2 x 33 x 97
+   and on real GIER masks (RLE-decoded, resized); the masked step
+   backward (B4) at b64 x 128 px, b128 x 512 px and odd shapes, with the
+   tie patches half inside and half outside the mask; the tolerances of
+   phases 4 and 5; under an all-ones mask B2 must equal B1 and B4 equal
+   B3 bit for bit; both timed beside B1 and B3;
+7. serve: a full-width actor (ModelConfig() defaults, 918-token
    vocabulary, seeded random weights) behind ServingEngine on the card:
    32 requests over two shape buckets with the launch counters read
    around the run, two of them again on the CPU for parity, then the
    request rate over 64 requests at 512 px;
-6. train: `t2onet_tpu_torch.cli.train_fivek --synthetic` at
+8. train: `t2onet_tpu_torch.cli.train_fivek --synthetic` at
    ModelConfig() widths, batch 64, 128 px, 8 iterations (4 of each
    phase) through the fused step kernels, with the launch counters read
    around the run: finite losses, changed weights, a checkpoint, and
    chain = step_bwd = 5 launches per episode iteration; then each
    phase's step time on batches already on the card, and the episode
    step through the fused kernels against the bank;
-7. card vs CPU: one episode step of a full-width actor from the same
+9. card vs CPU: one episode step of a full-width actor from the same
    weights and the same Gumbel noise, b8 at 64 px, through the kernels
-   on the card and the plain versions on the CPU.
+   on the card and the plain versions on the CPU;
+10. GIER train: `t2onet_tpu_torch.cli.train_gier --is_load_mask 1` on
+   the repo's real GIER data (data_real_gier, shapeAlign: 446 requests)
+   and planner actions (data_real_gier_acts) at ModelConfig() widths,
+   GloVe word rows frozen, decoder_max_len 8, batch 64, 128 px, 8
+   iterations: finite losses, changed weights, frozen GloVe rows, a
+   checkpoint, and chain_masked = step_bwd_masked = 8 launches per
+   episode iteration with no unmasked launch; then the host's ms per
+   batch and each phase's step time on batches already on the card;
+11. GIER card vs CPU: one sampled masked episode step of a full-width
+   GIER actor, b8 real items at 64 px with real local masks on every op
+   (so that each executed step blends through one), the same
+   weights and noise, B2/B4 on the card against the plain versions on
+   the CPU, within phase 9's bounds.
 
 The last three lines of stdout are the kernels JSON line, the card's
 name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
@@ -121,6 +145,21 @@ def build_phase():
 
 
 # -- phase 3 ------------------------------------------------------------------
+def host_packages_phase():
+    """Which host packages the data path can import here: cv2 reads the
+    JPEGs, h5py the GloVe .h5 (the .npy copy stands in without it)."""
+    import importlib.util
+
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("cv2", "PIL", "h5py")}
+    log(f"host packages: {found}")
+    if not found["cv2"]:
+        fail("cv2 is missing: the GIER trainer cannot read its JPEGs")
+    return found
+
+
+
+# -- phase 4 ------------------------------------------------------------------
 def bench_workload(batch=128, size=512, steps=5, seed=0):
     """bench.py:build_workload's draw (same rng calls), plus forced cases:
     a chain with two sharpness steps, one with slots 0 and 5, and exact
@@ -237,10 +276,13 @@ def kernel_phase():
     serve_ms = statistics.median(time_ms(lambda: chain.fused_chain(
         *serve_args)))
     log(f"chain b8 512x512 K5 (serving micro-batch): kernel {serve_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms}
+    bd, by = bound(6, slots, 512, 512, FWD_OPS, 0)
+    log(f"  bound at b{b} 512x512 K{k}: {bd:.4f} ms ({by})")
+    return {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bd, "bound_by": by}
 
 
-# -- phase 4 ------------------------------------------------------------------
+# -- phase 5 ------------------------------------------------------------------
 def step_case(b, h, w, seed):
     """imgs, slots (every slot), params and a +-1 cotangent, with the
     pixels where tie rules bite: exact 0 / 0.5 / 1, gray (three equal
@@ -315,19 +357,223 @@ def step_kernel_phase():
         k = statistics.median(k1 + k2)
         pl = statistics.median(p1 + p2)
         moved = 3 * imgs.numel() * 4
+        bd, by = bound(9, slots, imgs.shape[2], imgs.shape[3], BWD_OPS, 0)
         log(f"step_bwd {name}: kernel {k:.4f} ms ({moved / k / 1e6:.1f} "
             f"GB/s), plain {pl:.4f} ms; B1 at K=1 on the same images "
-            f"{f:.4f} ms; medians, kernel 2x20 calls, plain 2x10")
-        times[name] = (k, pl, f)
+            f"{f:.4f} ms; bound {bd:.4f} ms ({by}); medians, kernel 2x20 "
+            f"calls, plain 2x10")
+        times[name] = (k, pl, f, bd, by)
     return {"max_abs_err": worst_img, "param_rel_err": worst_param,
             "ms": times["trainer b64 128x128"][0],
             "plain_ms": times["trainer b64 128x128"][1],
             "ms_b128_512": times["b128 512x512"][0],
             "plain_ms_b128_512": times["b128 512x512"][1],
-            "chain_k1_ms_b128_512": times["b128 512x512"][2]}
+            "chain_k1_ms_b128_512": times["b128 512x512"][2],
+            "bound_ms": times["trainer b64 128x128"][3],
+            "bound_by": times["trainer b64 128x128"][4]}
 
 
-# -- phase 5 ------------------------------------------------------------------
+# -- phase 6 ------------------------------------------------------------------
+# f32 operations per pixel (three channels) of one executed step, counted
+# from csrc/chain.cu and csrc/step_bwd.cu (approximate; min, max, compare
+# and select count as one each): forward by slot, its backward, and what
+# the mask blend adds to each.
+FWD_OPS = {0: 0, 1: 16, 2: 32, 3: 28, 4: 67, 5: 0, 6: 67, 7: 27, 8: 9}
+BWD_OPS = {0: 0, 1: 60, 2: 110, 3: 95, 4: 160, 5: 0, 6: 160, 7: 60, 8: 0}
+MASK_FWD_OPS, MASK_BWD_OPS = 12, 27
+PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
+PEAK_F32_S = 67e12              # H100 SXM f32 outside the tensor cores
+
+
+def bound(planes, slots, h, w, ops, extra_ops):
+    """(bound_ms, bound_by): the larger of the planes of b*h*w f32 values
+    moved once over the memory rate and the operations the slots need
+    over the f32 rate."""
+    b = slots.shape[0]
+    n_ops = sum(ops[int(s)] + (extra_ops if int(s) not in (0, 5) else 0)
+                for s in np.asarray(slots.cpu()).ravel()) * h * w
+    t_bytes = planes * b * h * w * 4 / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def half_mask(b, h, w, seed):
+    """(b, 1, h, w) f32: binary in the left half, fractional in the right."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(0, 1, (b, 1, h, w)).astype(np.float32)
+    m[..., : w // 2] = (m[..., : w // 2] > 0.5).astype(np.float32)
+    return m
+
+
+def step_mask(b, h, w, seed):
+    """half_mask, with step_case's exact 0 / 0.5 / 1 and gray patches
+    (columns < w/3) half inside the mask and half outside it."""
+    m = half_mask(b, h, w, seed)
+    m[..., : w // 6] = 1.0
+    m[..., w // 6: w // 3] = 0.0
+    return m
+
+
+def gier_masks(n, size):
+    """Up to n real GIER masks: every instance of the RLE mask files in
+    data_real_gier, decoded and resized (nearest) to size x size."""
+    from t2onet_tpu_torch.data.rle import resize_nearest, rle_decode
+
+    mdir = os.path.join("data_real_gier", "GIER", "masks")
+    out = []
+    for name in sorted(os.listdir(mdir)):
+        with open(os.path.join(mdir, name)) as f:
+            for rle in json.load(f):
+                out.append(resize_nearest(rle_decode(rle), size, size))
+                if len(out) == n:
+                    break
+        if len(out) == n:
+            break
+    return np.stack(out)[:, None].astype(np.float32)
+
+
+def masked_chain_phase():
+    """B2 against its plain version and, under an all-ones mask, against
+    B1; then timed beside B1."""
+    bench = bench_workload()
+    k1 = step_k1_case(64, 128, 128, seed=10)
+    odd = random_case(2, 33, 97, seed=6)
+    real_m = gier_masks(64, 128)
+    real = random_case(real_m.shape[0], 128, 128, k=5, seed=15)
+    cases = {
+        "bench b128 512x512 K5": bench + (half_mask(128, 512, 512, 20),),
+        "trainer b64 128x128 K1": k1 + (step_mask(64, 128, 128, 21),),
+        "2x33x97 K5": odd + (half_mask(2, 33, 97, 22),),
+        f"real GIER masks b{real_m.shape[0]} 128x128 K5": real + (real_m,),
+    }
+    worst = 0.0
+    for name, arrays in cases.items():
+        imgs, slots, params, mask = to_card(*arrays)
+        out = chain.fused_chain(imgs, slots, params, mask)
+        torch.cuda.synchronize()
+        ref = chain.fused_chain_reference(imgs, slots, params, mask)
+        err = max_err(out, ref)
+        ones = torch.ones_like(mask)
+        same = torch.equal(chain.fused_chain(imgs, slots, params, ones),
+                           chain.fused_chain(imgs, slots, params))
+        log(f"masked chain vs plain [{name}]: max abs err {err:.3e}; "
+            f"all-ones mask equals B1: {same}")
+        if not err <= CHAIN_ATOL:
+            fail(f"masked chain kernel disagrees with its plain version on "
+                 f"{name}: {err} > {CHAIN_ATOL}")
+        if not same:
+            fail(f"masked chain under an all-ones mask differs from the "
+                 f"unmasked chain on {name}")
+        worst = max(worst, err)
+
+    times = {}
+    for name in ("bench b128 512x512 K5", "trainer b64 128x128 K1"):
+        imgs, slots, params, mask = to_card(*cases[name])
+
+        def kern():
+            chain.fused_chain(imgs, slots, params, mask)
+
+        def plain():
+            chain.fused_chain_reference(imgs, slots, params, mask)
+
+        def unmasked():
+            chain.fused_chain(imgs, slots, params)
+
+        p1 = time_ms(plain, iters=10)
+        k1_ = time_ms(kern)
+        k2_ = time_ms(kern)
+        p2 = time_ms(plain, iters=10)
+        u = statistics.median(time_ms(unmasked))
+        k = statistics.median(k1_ + k2_)
+        pl = statistics.median(p1 + p2)
+        b, h, w = imgs.shape[0], imgs.shape[2], imgs.shape[3]
+        bd, by = bound(7, slots, h, w, FWD_OPS, MASK_FWD_OPS)
+        log(f"masked chain {name}: kernel {k:.4f} ms ({7 * b * h * w * 4 / k / 1e6:.1f} "
+            f"GB/s), plain {pl:.4f} ms, B1 on the same inputs {u:.4f} ms; "
+            f"bound {bd:.4f} ms ({by}); medians, kernel 2x20 calls, plain "
+            f"2x10")
+        times[name] = (k, pl, u, bd, by)
+    k, pl, u, bd, by = times["bench b128 512x512 K5"]
+    k1t = times["trainer b64 128x128 K1"]
+    return {"max_abs_err": worst, "ms": k, "plain_ms": pl, "b1_ms": u,
+            "bound_ms": bd, "bound_by": by, "ms_b64_128_k1": k1t[0],
+            "plain_ms_b64_128_k1": k1t[1], "b1_ms_b64_128_k1": k1t[2],
+            "bound_ms_b64_128_k1": k1t[3]}
+
+
+def masked_step_phase():
+    """B4 against its plain version and, under an all-ones mask, against
+    B3; then timed beside B3."""
+    cases = {
+        "trainer b64 128x128": step_case(64, 128, 128, seed=10)
+        + (step_mask(64, 128, 128, 30),),
+        "b128 512x512": step_case(128, 512, 512, seed=11)
+        + (step_mask(128, 512, 512, 31),),
+        "2x33x97": step_case(2, 33, 97, seed=12) + (step_mask(2, 33, 97, 32),),
+        "9x8x8": step_case(9, 8, 8, seed=14) + (step_mask(9, 8, 8, 33),),
+    }
+    worst_img = worst_param = 0.0
+    for name, arrays in cases.items():
+        imgs, slots, params, g, mask = to_card(*arrays)
+        d_img, d_params = step.step_bwd(imgs, slots, params, g, mask)
+        torch.cuda.synchronize()
+        r_img, r_params = step.fused_step_bwd_reference(imgs, slots, params,
+                                                        g, mask)
+        ei = max_err(d_img, r_img)
+        ep = param_rel_err(d_params, r_params)
+        o_img, o_params = step.step_bwd(imgs, slots, params, g,
+                                        torch.ones_like(mask))
+        u_img, u_params = step.step_bwd(imgs, slots, params, g)
+        same = torch.equal(o_img, u_img) and torch.equal(o_params, u_params)
+        log(f"masked step_bwd vs plain [{name}]: d_img max abs err {ei:.3e},"
+            f" d_params max rel err {ep:.3e}; all-ones mask equals B3: "
+            f"{same}")
+        if not (ei <= STEP_IMG_ATOL and ep <= STEP_PARAM_RTOL):
+            fail(f"masked step_bwd kernel disagrees with its plain version "
+                 f"on {name}: d_img {ei} (<= {STEP_IMG_ATOL}), d_params {ep}"
+                 f" (<= {STEP_PARAM_RTOL})")
+        if not same:
+            fail(f"masked step_bwd under an all-ones mask differs from the "
+                 f"unmasked one on {name}")
+        worst_img, worst_param = max(worst_img, ei), max(worst_param, ep)
+
+    times = {}
+    for name in ("trainer b64 128x128", "b128 512x512"):
+        imgs, slots, params, g, mask = to_card(*cases[name])
+
+        def kern():
+            step.step_bwd(imgs, slots, params, g, mask)
+
+        def plain():
+            step.fused_step_bwd_reference(imgs, slots, params, g, mask)
+
+        def unmasked():
+            step.step_bwd(imgs, slots, params, g)
+
+        p1 = time_ms(plain, iters=10)
+        k1 = time_ms(kern)
+        k2 = time_ms(kern)
+        p2 = time_ms(plain, iters=10)
+        u = statistics.median(time_ms(unmasked))
+        k = statistics.median(k1 + k2)
+        pl = statistics.median(p1 + p2)
+        b, h, w = imgs.shape[0], imgs.shape[2], imgs.shape[3]
+        bd, by = bound(10, slots, h, w, BWD_OPS, MASK_BWD_OPS)
+        log(f"masked step_bwd {name}: kernel {k:.4f} ms "
+            f"({10 * b * h * w * 4 / k / 1e6:.1f} GB/s), plain {pl:.4f} ms, "
+            f"B3 on the same inputs {u:.4f} ms; bound {bd:.4f} ms ({by}); "
+            f"medians, kernel 2x20 calls, plain 2x10")
+        times[name] = (k, pl, u, bd, by)
+    k, pl, u, bd, by = times["trainer b64 128x128"]
+    big = times["b128 512x512"]
+    return {"max_abs_err": worst_img, "param_rel_err": worst_param,
+            "ms": k, "plain_ms": pl, "b3_ms": u, "bound_ms": bd,
+            "bound_by": by, "ms_b128_512": big[0],
+            "plain_ms_b128_512": big[1], "b3_ms_b128_512": big[2],
+            "bound_ms_b128_512": big[3]}
+
+
+# -- phase 7 ------------------------------------------------------------------
 def make_vocab():
     """918 tokens: the 4 specials, the requests' words, then filler."""
     words = []
@@ -435,7 +681,7 @@ def serve_phase():
     return launches
 
 
-# -- phase 6 ------------------------------------------------------------------
+# -- phase 8 ------------------------------------------------------------------
 TRAIN_ARGV = ["--synthetic", "--device", "cuda", "--batch_size", "64",
               "--img_size", "128", "--num_iters", "8", "--print_every", "2",
               "--checkpoint_every", "8", "--val_batches", "1",
@@ -529,7 +775,7 @@ def train_timing_phase(state):
             "img_s": img_s}
 
 
-# -- phase 7 ------------------------------------------------------------------
+# -- phase 9 ------------------------------------------------------------------
 def card_vs_cpu_phase():
     """One sampled episode step of a full-width actor, the same weights
     and Gumbel noise, through the kernels on the card and the plain
@@ -596,17 +842,272 @@ def card_vs_cpu_phase():
     return lc
 
 
+# -- phase 10, 11 -------------------------------------------------------------
+GIER_RUN_DIR = os.path.join("output", "chip_smoke_gier")
+GLOVE_NPY = os.path.join("data_real_gier_acts", "GIER_vocabs_glove_feat_3.npy")
+GIER_ARGV = ["--device", "cuda", "--is_load_mask", "1",
+             "--data_dir", "data_real_gier",
+             "--act_dir", os.path.join("data_real_gier_acts",
+                                       "GIER_actions_set_1"),
+             "--data_mode", "shapeAlign", "--glove_path", GLOVE_NPY,
+             "--batch_size", "64", "--img_size", "128", "--num_iters", "8",
+             "--print_every", "2", "--checkpoint_every", "8",
+             "--val_batches", "1", "--fused_exec", "1",
+             "--run_dir", GIER_RUN_DIR]
+
+
+def gier_train_phase():
+    """The GIER local-edit trainer at ModelConfig() width on the repo's
+    real GIER data and planner actions: 8 iterations, 4 of them episode
+    iterations of 8 masked rollout steps each."""
+    from t2onet_tpu_torch.cli import train_gier
+    from t2onet_tpu_torch.data.text import load_embedding
+
+    shutil.rmtree(GIER_RUN_DIR, ignore_errors=True)
+    for k in chain.LAUNCHES:
+        chain.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    state = train_gier.main(GIER_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(chain.LAUNCHES)
+    cfg = state.actor.cfg
+    want = 4 * cfg.decoder_max_len
+    log(f"gier train: 8 iterations in {wall:.2f} s (host clock, JPEGs and "
+        f"masks decoded on the fly, validation and checkpoint included); "
+        f"launches {launches}, want chain_masked = step_bwd_masked = {want}"
+        f", chain = step_bwd = 0")
+    if state.step != 8:
+        fail(f"the GIER trainer stopped at step {state.step}, not 8")
+    if not (launches["chain_masked"] == launches["step_bwd_masked"] == want
+            and launches["chain"] == launches["step_bwd"] == 0):
+        fail(f"GIER launches {launches}: want {want} of each masked kernel "
+             f"(4 episode iterations x {cfg.decoder_max_len} steps) and "
+             f"no unmasked launch")
+    with open(os.path.join(GIER_RUN_DIR, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [(r["step"], k, r[k]) for r in recs for k in
+              ("op_loss", "param_loss", "L1_loss", "val_L1") if k in r]
+    log(f"  logged {losses}")
+    if not losses or not all(math.isfinite(v) for _, _, v in losses):
+        fail(f"non-finite or missing GIER losses: {losses}")
+    if not os.path.exists(os.path.join(GIER_RUN_DIR, "seq2seqL1_model",
+                                       "checkpoint_iter00000008.pt")):
+        fail("the GIER trainer wrote no checkpoint at iteration 8")
+    a = train_gier.train_parser().parse_args(GIER_ARGV)
+    glove = load_embedding(GLOVE_NPY)
+    initial, _ = common.build_actor(a, glove.shape[0] + 4, glove)
+    before = dict(initial.named_parameters())
+    unchanged = [n for n, p in state.actor.named_parameters()
+                 if p.requires_grad and torch.equal(p.detach().cpu(),
+                                                    before[n].detach())]
+    stray = [n for n in unchanged
+             if not n.startswith(("executor.inpaint_op",
+                                  "executor.white_op"))]
+    log(f"  trainable tensors unchanged after 8 steps: {unchanged}")
+    if stray:
+        fail(f"GIER training left these tensors unchanged: {stray}")
+    emb = state.actor.lang_encoder.embedding.weight.detach().cpu()
+    if not cfg.fix_input_embedding or not torch.equal(
+            emb[4:], torch.from_numpy(glove)):
+        fail("the GloVe word rows were not frozen at their values")
+    if torch.equal(emb[:4], before["lang_encoder.embedding.weight"][:4]):
+        fail("the special tokens' rows did not train")
+    log(f"  GloVe rows {tuple(glove.shape)} frozen, special rows trained")
+    return state, launches
+
+
+def gier_timing_phase(state):
+    """The host's ms per b64 GIER batch (JPEG and mask decode, no cache),
+    then each phase's step time on GIER batches already on the card."""
+    from t2onet_tpu_torch.cli import train_gier
+
+    a = train_gier.train_parser().parse_args(GIER_ARGV)
+    ds = common.build_dataset_and_vocab(a, "train", wire_u8=True)[0]
+    it = ds.batches(64, 3, shuffle=True, seed=4)
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nb = next(it)
+        host.append((time.perf_counter() - t0) * 1e3)
+    sup = device_put_batch({k: nb[k] for k in ("x", "y", "img_x", "img_y",
+                                               "gt_params")}, "cuda")
+    epi = device_put_batch({"x": nb["x"], "img_x": nb["img_x"],
+                            "gt_img": nb["img_y"][:, -1],
+                            "masks_vocab": nb["masks_vocab"]}, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def timed(fn, n=6, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    s_ms = statistics.median(timed(lambda: loop.supervised_step(state, sup)))
+    e_ms = statistics.median(timed(lambda: loop.episode_step(
+        state, epi, gen, fused_exec=True)))
+    h_ms = statistics.median(host)
+    log(f"gier step times, b64 128 px, ModelConfig(), decoder_max_len "
+        f"{state.actor.cfg.decoder_max_len}, TF32 off (host clock around "
+        f"each step, synchronised; medians of 6 after 2 warm-ups): "
+        f"supervised {s_ms:.2f} ms, masked episode (fused) {e_ms:.2f} ms; "
+        f"host {h_ms:.1f} ms per b64 batch (median of 3: "
+        f"{[round(x, 1) for x in host]})")
+    return {"sup_ms": s_ms, "epi_masked_ms": e_ms, "host_ms_per_batch": h_ms}
+
+
+def every_op_masked(masks_vocab):
+    """The batch's real local masks shared out, in turn, to every op id
+    (3 and up) that has none, so that each executed rollout step blends
+    through a real local mask whatever op it draws: a random actor
+    rarely draws an item's own local op."""
+    mv = masks_vocab.copy()
+    local = [mv[i, o] for i in range(mv.shape[0])
+             for o in range(mv.shape[1]) if (mv[i, o] < 1).any()]
+    j = 0
+    for i in range(mv.shape[0]):
+        for o in range(3, mv.shape[1]):
+            if not (mv[i, o] < 1).any():
+                mv[i, o] = local[j % len(local)]
+                j += 1
+    return mv
+
+
+def gier_step_case(spread_masks=True):
+    """(batch, actor, draws) of one sampled masked episode step: b8 real
+    GIER items at 64 px (numpy batch; `every_op_masked` unless
+    spread_masks is False), a full-width GIER actor on the CPU (GloVe
+    rows frozen, color and tone knots near 1) and 8 steps of Gumbel
+    noise."""
+    from t2onet_tpu_torch.data.gier import GIERDatasetAct
+    from t2onet_tpu_torch.data.text import load_embedding
+
+    glove = load_embedding(GLOVE_NPY)
+    ds = GIERDatasetAct(os.path.join("data_real_gier", "GIER"),
+                        os.path.join("data_real_gier", "language"),
+                        os.path.join("data_real_gier_acts",
+                                     "GIER_actions_set_1"), "train",
+                        data_mode="shapeAlign", is_load_mask=True,
+                        train_img_size=64)
+    nb = next(ds.batches(8, 1, shuffle=True, seed=2))
+    masks = nb["masks_vocab"]
+    batch = {"x": nb["x"], "img_x": nb["img_x"], "gt_img": nb["img_y"][:, -1],
+             "masks_vocab": every_op_masked(masks) if spread_masks else masks}
+    cfg = ModelConfig(decoder_max_len=8, fix_input_embedding=True)
+    actor = Actor(cfg, OperatorConfig(), glove.shape[0] + 4,
+                  generator=torch.Generator().manual_seed(3), word2vec=glove)
+    with torch.no_grad():
+        actor.executor.color_op.fc2.bias += 1.0
+        actor.executor.tone_op.fc2.bias += 1.0
+    g = torch.Generator().manual_seed(11)
+    draws = [-torch.log(-torch.log(torch.rand((8, cfg.op_vocab_size),
+                                              generator=g).clamp_min(1e-38)))
+             for _ in range(cfg.decoder_max_len)]
+    return batch, actor, draws
+
+
+def gier_card_vs_cpu_phase():
+    """One sampled masked episode step of a full-width GIER actor (GloVe
+    rows frozen), b8 of real GIER items at 64 px with real masks on every
+    op (`every_op_masked`), the same weights and Gumbel noise: B2 and B4
+    on the card against the plain versions on the CPU, within phase 9's
+    bounds."""
+    batch, actor, draws = gier_step_case()
+    cfg = actor.cfg
+    local = float((batch["masks_vocab"][:, 3:] < 1).mean())
+    cpu_state = loop.TrainState(copy.deepcopy(actor))
+    card_state = loop.TrainState(actor.cuda())
+    before = dict(chain.LAUNCHES)
+    losses, ops = {}, {}
+    for name, st, dev in (("card", card_state, "cuda"),
+                          ("cpu", cpu_state, "cpu")):
+        it = iter(draws)
+        episode = st.actor.episode
+
+        def keep_ops(*args, episode=episode, name=name, **kw):
+            out = episode(*args, **kw)
+            ops[name] = out["ops"].cpu()
+            return out
+
+        st.actor.episode = keep_ops
+        m = loop.episode_step(st, device_put_batch(batch, dev),
+                              noise_fn=lambda s, it=it, dev=dev:
+                              next(it).to(dev), fused_exec=True)
+        del st.actor.episode
+        losses[name] = float(m["L1_loss"])
+    ran = {k: chain.LAUNCHES[k] - before[k] for k in before}
+    # executed steps (op ids 3 and up) whose mask has local values
+    drawn = ops["card"]
+    mv = torch.from_numpy(batch["masks_vocab"])
+    local_step = (mv[torch.arange(drawn.shape[0])[:, None], drawn] < 1) \
+        .flatten(2).any(-1)
+    executed = drawn >= 3
+    blended = int((executed & local_step).sum())
+    same_ops = torch.equal(drawn, ops["cpu"])
+    lc, lp = losses["card"], losses["cpu"]
+    pairs = [(n, pc.grad.double().cpu(), pp.grad.double())
+             for (n, pc), (_, pp) in zip(card_state.actor.named_parameters(),
+                                         cpu_state.actor.named_parameters())
+             if pc.requires_grad]
+    total = math.sqrt(sum(float((gp * gp).sum()) for _, _, gp in pairs))
+    diff = math.sqrt(sum(float(((gc - gp) ** 2).sum())
+                         for _, gc, gp in pairs))
+    per = sorted(((float((gc - gp).norm()) / (0.05 * float(gp.norm())
+                                              + 1e-6 * total), n)
+                  for n, gc, gp in pairs), reverse=True)
+    stats = max(float((bc.cpu() - bp).abs().max()) for (n, bc), (_, bp) in
+                zip(card_state.actor.named_buffers(),
+                    cpu_state.actor.named_buffers())
+                if "running" in n)
+    log(f"card vs CPU masked episode step (b8 real GIER items, 64 px, "
+        f"real local masks on every op, {local:.3f} of the ops' mask "
+        f"values below 1, full width, GloVe rows, "
+        f"same noise; card launches {ran}; {blended} of "
+        f"{int(executed.sum())} executed steps blend through a local "
+        f"mask; same ops on both: {same_ops}): L1 {lc:.7f} vs {lp:.7f}; "
+        f"gradients ||card - cpu|| / ||cpu|| {diff / total:.2e} over all "
+        f"{len(pairs)} tensors; worst tensors' error / bound "
+        f"{[(n, round(r, 4)) for r, n in per[:3]]}; BN running stats max "
+        f"diff {stats:.2e}")
+    if ran["chain_masked"] != cfg.decoder_max_len or \
+            ran["step_bwd_masked"] != cfg.decoder_max_len:
+        fail(f"the card's masked step ran {ran}, not the masked kernels "
+             f"{cfg.decoder_max_len} times each")
+    if blended == 0:
+        fail("no executed rollout step blended through a local mask")
+    if not (same_ops and abs(lc - lp) <= 1e-5 * abs(lp) + 1e-7
+            and diff <= 1e-2 * total and per[0][0] <= 1.0 and stats <= 1e-4):
+        fail("the card's masked episode step disagrees with the CPU's")
+    return lc
+
+
 def main():
     smi = device_phase()
     build_phase()
+    host_packages_phase()
     k = kernel_phase()
     sb = step_kernel_phase()
+    mc = masked_chain_phase()
+    ms = masked_step_phase()
     serve_launches = serve_phase()
     state, train_launches = train_phase()
     t = train_timing_phase(state)
     card_vs_cpu_phase()
+    del state
+    gstate, gier_launches = gier_train_phase()
+    gt = gier_timing_phase(gstate)
+    gier_card_vs_cpu_phase()
     chain_by_path = {"serve": serve_launches,
-                     "train": train_launches["chain"]}
+                     "train": train_launches["chain"],
+                     "gier_train": gier_launches["chain"]}
+    step_by_path = {"serve": 0, "train": train_launches["step_bwd"],
+                    "gier_train": gier_launches["step_bwd"]}
     kernels = {"kernels": [{
         "name": "chain", "route": "cuda",
         "source": "t2onet_tpu_torch/csrc/chain.cu",
@@ -614,19 +1115,49 @@ def main():
         "launches": sum(chain_by_path.values()),
         "launches_by_path": chain_by_path,
         "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"]}, {
+        "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": None}, {
+        "name": "chain_masked", "route": "cuda",
+        "source": "t2onet_tpu_torch/csrc/chain.cu",
+        "replaces": "t2onet_tpu/ops/pallas_fused.py:286",
+        "launches": gier_launches["chain_masked"],
+        "launches_by_path": {"serve": 0, "train": 0,
+                             "gier_train": gier_launches["chain_masked"]},
+        "max_abs_err": mc["max_abs_err"],
+        "ms": mc["ms"], "kernel_ms": mc["ms"], "plain_ms": mc["plain_ms"],
+        "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
+        "library_ms": None,
+        "ms_b64_128_k1": mc["ms_b64_128_k1"],
+        "plain_ms_b64_128_k1": mc["plain_ms_b64_128_k1"],
+        "bound_ms_b64_128_k1": mc["bound_ms_b64_128_k1"]}, {
         "name": "step_bwd", "route": "cuda",
         "source": "t2onet_tpu_torch/csrc/step_bwd.cu",
         "replaces": "t2onet_tpu/ops/pallas_fused.py:402",
-        "launches": train_launches["step_bwd"],
-        "launches_by_path": {"serve": 0,
-                             "train": train_launches["step_bwd"]},
+        "launches": sum(step_by_path.values()),
+        "launches_by_path": step_by_path,
         "max_abs_err": sb["max_abs_err"],
         "d_params_rel_err": sb["param_rel_err"],
         "ms": sb["ms"], "kernel_ms": sb["ms"], "plain_ms": sb["plain_ms"],
+        "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
+        "library_ms": None,
         "ms_b128_512": sb["ms_b128_512"],
-        "plain_ms_b128_512": sb["plain_ms_b128_512"]}],
-        "train": t}
+        "plain_ms_b128_512": sb["plain_ms_b128_512"]}, {
+        "name": "step_bwd_masked", "route": "cuda",
+        "source": "t2onet_tpu_torch/csrc/step_bwd.cu",
+        "replaces": "t2onet_tpu/ops/pallas_fused.py:409",
+        "launches": gier_launches["step_bwd_masked"],
+        "launches_by_path": {"serve": 0, "train": 0,
+                             "gier_train": gier_launches["step_bwd_masked"]},
+        "max_abs_err": ms["max_abs_err"],
+        "d_params_rel_err": ms["param_rel_err"],
+        "ms": ms["ms"], "kernel_ms": ms["ms"], "plain_ms": ms["plain_ms"],
+        "bound_ms": ms["bound_ms"], "bound_by": ms["bound_by"],
+        "library_ms": None,
+        "ms_b128_512": ms["ms_b128_512"],
+        "plain_ms_b128_512": ms["plain_ms_b128_512"],
+        "bound_ms_b128_512": ms["bound_ms_b128_512"]}],
+        "train": t, "gier_train": gt}
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

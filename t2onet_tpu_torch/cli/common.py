@@ -1,8 +1,8 @@
-"""Shared CLI plumbing: flags -> Config, actor construction, scalar logging
-(counterpart of the trainer's parts of `t2onet_tpu.cli.common`). Only the
-flags the synthetic trainer reads are here, with the JAX CLI's defaults
-and `--device` in place of `--cpu`; the file datasets' flags and the
-unported model modes (GloVe rows, discrete params, bf16 ResNet) come with
+"""Shared CLI plumbing: flags -> Config, datasets, actor construction,
+scalar logging (counterpart of the trainers' parts of
+`t2onet_tpu.cli.common`). The flags are the JAX CLI's, with its defaults,
+`--device` in place of `--cpu`, and `--glove_path` for hosts without
+h5py; the unported model modes (discrete params, bf16 ResNet) come with
 the code that reads them."""
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from t2onet_tpu_torch.config import (Config, ModelConfig, OperatorConfig,
@@ -27,6 +28,16 @@ def add_base_args(p: argparse.ArgumentParser):
     p.add_argument("--run_dir", default=None)
     p.add_argument("--trial", type=int, default=1)
     p.add_argument("--session", type=int, default=1)
+    p.add_argument("--action_id", type=int, default=1)
+    p.add_argument("--act_dir", default=None,
+                   help="planner actions dir (default output/actions_set_N,"
+                        " GIER: output/GIER_actions_set_N)")
+    p.add_argument("--data_dir", default="data",
+                   help="root holding FiveK/, GIER/, language/")
+    p.add_argument("--glove_path", default=None,
+                   help="GloVe word matrix, .h5 or an .npy copy (default "
+                        "{data_dir}/language/{dataset}_vocabs_glove_feat_"
+                        "{session}.h5, used when it exists)")
     p.add_argument("--manual_seed", type=int, default=10)
     p.add_argument("--synthetic", action="store_true",
                    help="use the synthetic dataset (no image files needed)")
@@ -41,6 +52,10 @@ def add_base_args(p: argparse.ArgumentParser):
     p.add_argument("--bidirectional", type=int, default=1)
     p.add_argument("--n_layers", type=int, default=2)
     p.add_argument("--operator_fc_dim", type=int, default=512)
+    p.add_argument("--fix_input_embedding", type=int, default=1,
+                   help="freeze the GloVe word rows, train only the 4 "
+                        "special rows (downgraded to 0 when no GloVe "
+                        "matrix is loaded)")
     p.add_argument("--resnet_widths", default=None,
                    help="comma-separated ResNet stage widths (default "
                         "64,128,256,512); shrink for tiny smoke runs")
@@ -78,6 +93,7 @@ def args_to_config(a) -> Config:
         n_layers=a.n_layers, bidirectional=bool(a.bidirectional),
         use_attention=bool(a.use_attention),
         operator_fc_dim=a.operator_fc_dim,
+        fix_input_embedding=bool(a.fix_input_embedding),
         **({"resnet_widths": tuple(
             int(x) for x in a.resnet_widths.split(","))}
            if a.resnet_widths else {}),
@@ -104,34 +120,72 @@ def resolve_run_dir(a) -> str:
     return run_dir
 
 
-def build_dataset_and_vocab(a, phase: str = "train"):
-    """(dataset, vocab2id). The port has the synthetic dataset; the file
-    datasets need the planner's action files and come with a later
-    slice."""
-    if not a.synthetic:
+def build_dataset_and_vocab(a, phase: str = "train", wire_u8: bool = False):
+    """(dataset, vocab2id, GloVe matrix or None). The synthetic set, or
+    GIER from {data_dir}/GIER and {data_dir}/language: the train split
+    with the planner's actions (`GIERDatasetAct`, uint8 images with
+    wire_u8), val/test without, at the train size. FiveK's files wait
+    for their planner actions."""
+    if a.synthetic:
+        from t2onet_tpu_torch.data.synthetic import (SyntheticFiveK,
+                                                     synthetic_vocab)
+
+        n = a.synthetic_n if phase == "train" else max(a.synthetic_n // 8, 16)
+        seed = {"train": 0, "val": 1, "test": 2}[phase]
+        ds = SyntheticFiveK(n=n, img_size=a.img_size, seed=seed,
+                            req_max_len=a.encoder_max_len,
+                            op_max_len=a.decoder_max_len)
+        return ds, synthetic_vocab(), None
+    if a.dataset != "GIER":
         raise NotImplementedError(
-            "only --synthetic is ported: the FiveK/GIER training split "
-            "needs the planner's action files (output/actions_set_N)")
-    from t2onet_tpu_torch.data.synthetic import SyntheticFiveK, synthetic_vocab
+            "FiveK's image files need the planner's action files "
+            "(output/actions_set_N), which the repo does not have yet: "
+            "use --synthetic or --dataset GIER")
+    from t2onet_tpu_torch.data.gier import GIERDataset, GIERDatasetAct
+    from t2onet_tpu_torch.data.text import load_embedding, load_vocab
 
-    n = a.synthetic_n if phase == "train" else max(a.synthetic_n // 8, 16)
-    seed = {"train": 0, "val": 1, "test": 2}[phase]
-    ds = SyntheticFiveK(n=n, img_size=a.img_size, seed=seed,
-                        req_max_len=a.encoder_max_len,
-                        op_max_len=a.decoder_max_len)
-    return ds, synthetic_vocab()
+    vocab_dir = os.path.join(a.data_dir, "language")
+    vocab2id = load_vocab(vocab_dir, a.dataset, a.session)[0]
+    gier_dir = os.path.join(a.data_dir, "GIER")
+    data_mode = getattr(a, "data_mode", "global")
+    if phase == "train":
+        act_dir = a.act_dir or f"output/GIER_actions_set_{a.action_id}"
+        ds = GIERDatasetAct(
+            gier_dir, vocab_dir, act_dir, phase, data_mode=data_mode,
+            is_load_mask=bool(getattr(a, "is_load_mask", 0)),
+            session=a.session, train_img_size=a.img_size,
+            wire_dtype=np.uint8 if wire_u8 else np.float32)
+    else:
+        # planner actions exist for the train split only
+        ds = GIERDataset(gier_dir, vocab_dir, phase, data_mode=data_mode,
+                         session=a.session, train_img_size=a.img_size)
+    glove = a.glove_path or os.path.join(
+        vocab_dir, f"{a.dataset}_vocabs_glove_feat_{a.session}.h5")
+    w2v = load_embedding(glove) if os.path.exists(glove) else None
+    return ds, vocab2id, w2v
 
 
-def build_actor(a, vocab_size: int):
+def build_actor(a, vocab_size: int, word2vec=None):
     """(Actor on the CPU, Config), weights drawn from a generator seeded
-    with --manual_seed. The word rows are all trained: GloVe rows, the
-    only ones the JAX CLI freezes, are not ported."""
+    with --manual_seed, the word rows from `word2vec` when given.
+    --fix_input_embedding 1 without GloVe rows falls back to 0, as the
+    JAX CLI does: random word rows frozen would leave the request encoder
+    untrainable."""
+    import dataclasses
+    import warnings
+
     from t2onet_tpu_torch.models.actor import Actor
 
     cfg = args_to_config(a)
+    if cfg.model.fix_input_embedding and word2vec is None:
+        warnings.warn("--fix_input_embedding 1 without a GloVe embedding: "
+                      "downgrading to 0 (nothing pretrained to freeze)")
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model,
+                                           fix_input_embedding=False))
     actor = Actor(cfg.model, cfg.operators, vocab_size,
                   generator=torch.Generator().manual_seed(a.manual_seed),
-                  explore_prob=a.explore_prob)
+                  explore_prob=a.explore_prob, word2vec=word2vec)
     return actor, cfg
 
 

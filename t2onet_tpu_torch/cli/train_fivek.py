@@ -5,7 +5,10 @@ Odd iterations are teacher-forced (op NLL + param MSE), even ones a
 sampled free rollout with L1 to the ground truth; one Adam over
 everything; periodic validation and best-checkpoint tracking. On a CUDA
 device the episode phase executes each rollout step through the fused
-step kernels (`--fused_exec`, on by default there).
+step kernels (`--fused_exec`, on by default there). With GIER's
+local-edit masks (`cli/train_gier.py --is_load_mask 1`) the episode
+phase blends each step through the mask of its predicted op, and the
+fused step runs the masked kernels.
 
 Usage (synthetic, no image files needed):
   python -m t2onet_tpu_torch.cli.train_fivek --synthetic --num_iters 200 \\
@@ -51,18 +54,23 @@ def train_parser() -> argparse.ArgumentParser:
                         "kernels (selected branch only, forward and "
                         "backward) instead of the one-hot bank. -1 "
                         "(default): on for a CUDA device, off on the CPU")
+    p.add_argument("--wire_u8", type=int, default=1, choices=(0, 1),
+                   help="file datasets ship images to the device as uint8 "
+                        "and divide by 255 there (4x fewer bytes)")
     return p
 
 
-def main(argv=None):
-    """Train; returns the final TrainState."""
-    a = train_parser().parse_args(argv)
+def main(argv=None, parser=None):
+    """Train; returns the final TrainState. `parser` defaults to
+    `train_parser()` (cli/train_gier.py passes its own)."""
+    a = (parser or train_parser()).parse_args(argv)
     device = torch.device(a.device)
     run_dir = common.resolve_run_dir(a)
 
-    train_ds, vocab2id = common.build_dataset_and_vocab(a, "train")
+    train_ds, vocab2id, w2v = common.build_dataset_and_vocab(
+        a, "train", wire_u8=bool(a.wire_u8))
     val_ds = common.build_dataset_and_vocab(a, "val")[0]
-    actor, _ = common.build_actor(a, len(vocab2id))
+    actor, _ = common.build_actor(a, len(vocab2id), w2v)
     state = TrainState(actor.to(device), learning_rate=a.learning_rate)
     n_params = sum(x.numel() for x in actor.parameters())
     print(f"model: {n_params / 1e6:.2f}M params on {device}")
@@ -81,6 +89,13 @@ def main(argv=None):
             print("--resume: no checkpoint found, starting fresh")
 
     logger = common.ScalarLogger(run_dir)
+    # GIER local edits: the masks reach the episode phase only (the
+    # supervised loss reads no executed image)
+    use_masks = (bool(getattr(a, "is_load_mask", 0)) and not a.synthetic
+                 and a.dataset == "GIER")
+    if getattr(a, "is_load_mask", 0) and not use_masks:
+        print("warning: --is_load_mask set but the dataset emits no masks: "
+              "training global-only")
     fused = (device.type == "cuda" if a.fused_exec == -1
              else bool(a.fused_exec))
     print(f"episode executor: "
@@ -100,6 +115,8 @@ def main(argv=None):
         else:
             keep = {"x": b["x"], "img_x": b["img_x"],
                     "gt_img": b["img_y"][:, -1]}
+            if use_masks:
+                keep["masks_vocab"] = b["masks_vocab"]
         return sup, device_put_batch(keep, device)
 
     n_left = max(a.num_iters - start_itr + 1, 0)

@@ -1,11 +1,23 @@
-// Backward kernel of one chain step for Hopper (sm_90a).
+// Backward kernels of one chain step for Hopper (sm_90a).
 //
-// Replaces t2onet_tpu/ops/pallas_fused.py:_step_bwd_kernel (launched there
-// by _step_bwd through _bwd_branches): the VJP of out = clip(op(img, p), 0, 1)
+// step_bwd_tiles<false> (with step_bwd_params) replaces
+// t2onet_tpu/ops/pallas_fused.py:_step_bwd_kernel (launched there by
+// _step_bwd through _bwd_branches): the VJP of out = clip(op(img, p), 0, 1)
 // for the op each image selected, giving d_img (B,3,H,W) and d_params
 // (B,24), the latter summed over all pixels of the image. Slots 0 and 5 pass
 // the cotangent through, slot 8 (white) passes nothing; both give zero
 // d_params. The plain version is ops/step.py:fused_step_bwd_reference.
+//
+// step_bwd_tiles<true> replaces _masked_step_bwd_kernel, the VJP through
+// the GIER mask blend y = op(x)*m + x*(1-m), out = clip(y, 0, 1): with
+// gy = g * clip'(y), the op's cotangent is gy*m and x also gets gy*(1-m)
+// directly; d_params sums gy*m * d op/d p. The mask gets no gradient. So
+// masked white (slot 8) passes gy*(1-m) where the unmasked one passes
+// nothing, and a pixel at exactly 0 or 1 outside the mask (y = x) passes
+// g/2. Sharpness needs gy*m at the four neighbours: the mask is read on
+// the same one-pixel ring as p*gc. Slots 0 and 5 are not blended. It moves
+// 10 planes per pixel against 9: 42 MB at B=64, 128x128 (12.5 us at
+// 3.35 TB/s), 1.34 GB at B=128, 512x512 (0.40 ms).
 //
 // Tie rules are jnp's, as JAX differentiates the forward: clip'(y) is 1/2
 // at y == 0 or 1, a pairwise max or min splits a tie in half (.25/.25/.5
@@ -76,10 +88,30 @@ __device__ __forceinline__ float dmin(float a, float b) {
   return a < b ? 1.0f : (a == b ? 0.5f : 0.0f);
 }
 
-// ---- pointwise VJPs: x, g the pixel's channels; d the result; q sums ----
+// The clamp's input and its cotangent. Unmasked: y = o, and the op's
+// cotangent is gc = g * clip'(o). Masked: y = o*m + x*(1-m), the op gets
+// gc = g * clip'(y) * m and x directly g * clip'(y) * (1-m), which JAX's
+// reverse pass adds to x's cotangent first (the blend is the forward's
+// last step).
+template <bool kMasked>
+__device__ __forceinline__ float blend_ct(float o, float x, float g, float m,
+                                          float* direct) {
+  if constexpr (kMasked) {
+    const float gy = g * clip_d(o * m + x * (1.0f - m));
+    *direct = gy * (1.0f - m);
+    return gy * m;
+  } else {
+    return g * clip_d(o);
+  }
+}
 
+// ---- pointwise VJPs: x, g the pixel's channels; m its mask (kMasked);
+// ---- d the result; q sums
+
+template <bool kMasked>
 __device__ __forceinline__ void bwd_brightness(const float* x, const float* g,
-                                               float p0, float* d, double* q) {
+                                               float m, float p0, float* d,
+                                               double* q) {
   const float m1 = max_(x[0], x[1]);
   const float v = max_(m1, x[2]);
   const float onep = 1.0f + p0;
@@ -87,22 +119,28 @@ __device__ __forceinline__ void bwd_brightness(const float* x, const float* g,
   const float c = clip(t, 0.0f, 1.0f);
   const float den = v + 1e-12f;
   const float k = c / den;
-  float gc[3];
-  for (int i = 0; i < 3; ++i) gc[i] = g[i] * clip_d(x[i] * k);
+  float gc[3], dx[3], direct[3];
+  for (int i = 0; i < 3; ++i) {
+    gc[i] = blend_ct<kMasked>(x[i] * k, x[i], g[i], m, &direct[i]);
+    dx[i] = gc[i] * k;
+    if constexpr (kMasked) dx[i] = direct[i] + dx[i];
+  }
   const float ct_k = (gc[0] * x[0] + gc[1] * x[1]) + gc[2] * x[2];
   const float ct_c = ct_k / den;
   const float ct_den = -((ct_k * (1.0f / (den * den))) * c);
   const float ct_t = ct_c * clip_d(t);
   const float ct_v = ct_den + ct_t * onep;
   const float ct_m1 = ct_v * dmax(m1, x[2]);
-  d[0] = gc[0] * k + ct_m1 * dmax(x[0], x[1]);
-  d[1] = gc[1] * k + ct_m1 * dmax(x[1], x[0]);
-  d[2] = gc[2] * k + ct_v * dmax(x[2], m1);
+  d[0] = dx[0] + ct_m1 * dmax(x[0], x[1]);
+  d[1] = dx[1] + ct_m1 * dmax(x[1], x[0]);
+  d[2] = dx[2] + ct_v * dmax(x[2], m1);
   q[0] = q[0] + static_cast<double>(ct_t * v);
 }
 
+template <bool kMasked>
 __device__ __forceinline__ void bwd_contrast(const float* x, const float* g,
-                                             float p0, float* d, double* q) {
+                                             float m, float p0, float* d,
+                                             double* q) {
   const float C0 = 3.1415926536f, C1 = -5.1677127683f, C2 = 2.5501634534f,
               C3 = -5.9925387121e-1f, C4 = 8.2058791186e-2f,
               C5 = -7.0429524662e-3f;
@@ -119,8 +157,12 @@ __device__ __forceinline__ void bwd_contrast(const float* x, const float* g,
   const float den = lum + 1e-6f;
   const float ratio = clum / den;
   const float k = (1.0f - p0) + p0 * ratio;
-  float gc[3];
-  for (int i = 0; i < 3; ++i) gc[i] = g[i] * clip_d(x[i] * k);
+  float gc[3], dx[3], direct[3];
+  for (int i = 0; i < 3; ++i) {
+    gc[i] = blend_ct<kMasked>(x[i] * k, x[i], g[i], m, &direct[i]);
+    dx[i] = gc[i] * k;
+    if constexpr (kMasked) dx[i] = direct[i] + dx[i];
+  }
   const float ct_k = (gc[0] * x[0] + gc[1] * x[1]) + gc[2] * x[2];
   const float ct_ratio = ct_k * p0;
   const float ct_clum = ct_ratio / den;
@@ -140,15 +182,17 @@ __device__ __forceinline__ void bwd_contrast(const float* x, const float* g,
   ct_u = ct_u + ct_v * u;
   ct_u = ct_u + ct_v * u;
   const float ct_lr = (ct_den + ct_u) * clip_d(lum_raw);
-  d[0] = gc[0] * k + ct_lr * 0.27f;
-  d[1] = gc[1] * k + ct_lr * 0.67f;
-  d[2] = gc[2] * k + ct_lr * 0.06f;
+  d[0] = dx[0] + ct_lr * 0.27f;
+  d[1] = dx[1] + ct_lr * 0.67f;
+  d[2] = dx[2] + ct_lr * 0.06f;
   q[0] = q[0] + static_cast<double>(ct_k * ratio);
   q[1] = q[1] + static_cast<double>(ct_k);
 }
 
+template <bool kMasked>
 __device__ __forceinline__ void bwd_saturation(const float* x, const float* g,
-                                               float p0, float* d, double* q) {
+                                               float m, float p0, float* d,
+                                               double* q) {
   const float m1 = max_(x[0], x[1]);
   const float v = max_(m1, x[2]);
   const float n1 = min_(x[0], x[1]);
@@ -157,15 +201,17 @@ __device__ __forceinline__ void bwd_saturation(const float* x, const float* g,
   const float ve = v + 1e-8f;
   const float onep = 1.0f + p0;
   const float t = dd * onep;
-  const float m = max_(t, 0.0f);
-  const float nc = min_(m, ve);
+  const float mt = max_(t, 0.0f);
+  const float nc = min_(mt, ve);
   const float num = nc * kS;
   const float den = dd * kS + kSE * ve;
   const float ratio = num / den;
-  float gc[3], e[3];
+  float gc[3], e[3], dx[3], direct[3];
   for (int i = 0; i < 3; ++i) {
     e[i] = v - x[i];
-    gc[i] = g[i] * clip_d(v - ratio * e[i]);
+    gc[i] = blend_ct<kMasked>(v - ratio * e[i], x[i], g[i], m, &direct[i]);
+    dx[i] = gc[i] * ratio;
+    if constexpr (kMasked) dx[i] = direct[i] + dx[i];
   }
   float ct_e[3];
   for (int i = 0; i < 3; ++i) ct_e[i] = (-gc[i]) * ratio;
@@ -176,8 +222,8 @@ __device__ __forceinline__ void bwd_saturation(const float* x, const float* g,
   float ct_d = ct_den * kS;
   float ct_ve = ct_den * kSE;
   const float ct_nc = ct_num * kS;
-  const float ct_m = ct_nc * dmin(m, ve);
-  ct_ve = ct_ve + ct_nc * dmin(ve, m);
+  const float ct_m = ct_nc * dmin(mt, ve);
+  ct_ve = ct_ve + ct_nc * dmin(ve, mt);
   const float ct_t = ct_m * dmax(t, 0.0f);
   ct_d = ct_d + ct_t * onep;
   const float ct_v = (((gc[0] + gc[1]) + gc[2]) +
@@ -185,9 +231,9 @@ __device__ __forceinline__ void bwd_saturation(const float* x, const float* g,
   const float ct_mn = -ct_d;
   const float ct_n1 = ct_mn * dmin(n1, x[2]);
   const float ct_m1 = ct_v * dmax(m1, x[2]);
-  d[0] = (gc[0] * ratio + ct_n1 * dmin(x[0], x[1])) + ct_m1 * dmax(x[0], x[1]);
-  d[1] = (gc[1] * ratio + ct_n1 * dmin(x[1], x[0])) + ct_m1 * dmax(x[1], x[0]);
-  d[2] = (gc[2] * ratio + ct_mn * dmin(x[2], n1)) + ct_v * dmax(x[2], m1);
+  d[0] = (dx[0] + ct_n1 * dmin(x[0], x[1])) + ct_m1 * dmax(x[0], x[1]);
+  d[1] = (dx[1] + ct_n1 * dmin(x[1], x[0])) + ct_m1 * dmax(x[1], x[0]);
+  d[2] = (dx[2] + ct_mn * dmin(x[2], n1)) + ct_v * dmax(x[2], m1);
   q[0] = q[0] + static_cast<double>(ct_t * dd);
 }
 
@@ -208,18 +254,21 @@ __device__ __forceinline__ Curve make_curve(const float* p) {
 }
 
 // One channel value through a curve's VJP; q gets [gc*x, -gc*min(x, j/8)].
+template <bool kMasked>
 __device__ __forceinline__ float bwd_curve(const Curve& c, float x, float g,
-                                           double* q) {
+                                           float m, double* q) {
   float mins[kCurveSteps - 1];
   float out = c.a * x;
   for (int j = 1; j < kCurveSteps; ++j) {
     mins[j - 1] = min_(x, j * (1.0f / kCurveSteps));
     out = out - c.b[j - 1] * mins[j - 1];
   }
-  const float gc = g * clip_d(out);
+  float direct;
+  const float gc = blend_ct<kMasked>(out, x, g, m, &direct);
   const float ngc = -gc;
   float dx = (ngc * c.b[kCurveSteps - 2]) *
              dmin(x, (kCurveSteps - 1) * (1.0f / kCurveSteps));
+  if constexpr (kMasked) dx = direct + dx;
   for (int j = kCurveSteps - 2; j >= 1; --j) {
     dx = dx + (ngc * c.b[j - 1]) * dmin(x, j * (1.0f / kCurveSteps));
   }
@@ -291,21 +340,25 @@ __device__ __forceinline__ int block_slot(const int* slots, int bi, int* ss) {
 }
 
 // Sharpness scratch: img with a two-pixel halo, p*gc with a one-pixel halo
-// and gc on the tile, three planes each (41.8 KB of static shared memory).
+// and the clamp's cotangent on the tile, three planes each (41.8 KB of
+// static shared memory); with kMasked also the mask on the tile (4 KB).
 constexpr int kSideX = kTile + 4;
 constexpr int kSideC = kTile + 2;
 
+template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
-step_bwd_tiles(const float* __restrict__ imgs, const int* __restrict__ slots,
-               const float* __restrict__ params, const float* __restrict__ g,
-               float* __restrict__ d_img, double* __restrict__ partials,
-               int H, int W) {
+step_bwd_tiles(const float* __restrict__ imgs, const float* __restrict__ mask,
+               const int* __restrict__ slots, const float* __restrict__ params,
+               const float* __restrict__ g, float* __restrict__ d_img,
+               double* __restrict__ partials, int H, int W) {
   __shared__ float sp[kMaxParam];
   __shared__ double red[kWarps];
   __shared__ int ss;
   __shared__ float sx[3][kSideX][kSideX];
   __shared__ float scd[3][kSideC][kSideC];
   __shared__ float sgc[3][kTile][kTile];
+  constexpr int kMaskSide = kMasked ? kTile : 1;
+  __shared__ float smk[kMaskSide][kMaskSide];
 
   const int bi = blockIdx.z;
   const int tid = threadIdx.y * kBlockX + threadIdx.x;
@@ -315,6 +368,7 @@ step_bwd_tiles(const float* __restrict__ imgs, const int* __restrict__ slots,
   const size_t hw = static_cast<size_t>(H) * W;
   const float* src = imgs + static_cast<size_t>(bi) * 3 * hw;
   const float* gsrc = g + static_cast<size_t>(bi) * 3 * hw;
+  const float* msrc = kMasked ? mask + static_cast<size_t>(bi) * hw : nullptr;
   float* dst = d_img + static_cast<size_t>(bi) * 3 * hw;
   const int ty0 = blockIdx.y * kTile;
   const int tx0 = blockIdx.x * kTile;
@@ -337,7 +391,9 @@ step_bwd_tiles(const float* __restrict__ imgs, const int* __restrict__ slots,
       }
     }
     __syncthreads();
-    // p*gc on the tile and a one-pixel ring; 0 outside the image
+    // p*gc on the tile and a one-pixel ring (gc the op's cotangent, which
+    // needs the mask on the ring too); 0 outside the image. sgc keeps the
+    // clamp's cotangent on the tile, smk the mask.
     for (int ry = threadIdx.y; ry < kSideC; ry += kBlockY) {
       const int gy = ty0 - 1 + ry;
       for (int rx = threadIdx.x; rx < kSideC; rx += kBlockX) {
@@ -345,6 +401,11 @@ step_bwd_tiles(const float* __restrict__ imgs, const int* __restrict__ slots,
         const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
         const size_t gi = static_cast<size_t>(gy) * W + gx;
         const bool center = ry >= 1 && ry <= kTile && rx >= 1 && rx <= kTile;
+        float m = 0.0f;
+        if constexpr (kMasked) {
+          if (in) m = msrc[gi];
+          if (center) smk[ry - 1][rx - 1] = m;
+        }
         for (int c = 0; c < 3; ++c) {
           float cd = 0.0f;
           if (in) {
@@ -355,9 +416,18 @@ step_bwd_tiles(const float* __restrict__ imgs, const int* __restrict__ slots,
             delta = delta - sx[c][y + 1][x];
             delta = delta - sx[c][y][x - 1];
             delta = delta - sx[c][y][x + 1];
-            const float gc = gsrc[c * hw + gi] * clip_d(v + p0 * delta);
+            const float o = v + p0 * delta;
+            float gc;
+            if constexpr (kMasked) {
+              const float gy_ = gsrc[c * hw + gi] *
+                                clip_d(o * m + v * (1.0f - m));
+              gc = gy_ * m;
+              if (center) sgc[c][ry - 1][rx - 1] = gy_;
+            } else {
+              gc = gsrc[c * hw + gi] * clip_d(o);
+              if (center) sgc[c][ry - 1][rx - 1] = gc;
+            }
             cd = gc * p0;
-            if (center) sgc[c][ry - 1][rx - 1] = gc;
           }
           scd[c][ry][rx] = cd;
         }
@@ -371,8 +441,15 @@ step_bwd_tiles(const float* __restrict__ imgs, const int* __restrict__ slots,
       const int y = ty + 1, x = threadIdx.x + 1;  // position in scd
       const size_t gi = static_cast<size_t>(gy) * W + gx;
       for (int c = 0; c < 3; ++c) {
-        const float gc = sgc[c][ty][threadIdx.x];
-        float dv = gc - scd[c][y][x - 1];
+        float gc = sgc[c][ty][threadIdx.x];
+        float dv = gc;
+        if constexpr (kMasked) {  // x's direct term first, then the op's
+          const float m = smk[ty][threadIdx.x];
+          const float gy_ = gc;
+          gc = gy_ * m;
+          dv = gy_ * (1.0f - m) + gc;
+        }
+        dv = dv - scd[c][y][x - 1];
         dv = dv - scd[c][y][x + 1];
         dv = dv - scd[c][y - 1][x];
         dv = dv - scd[c][y + 1][x];
@@ -404,23 +481,29 @@ step_bwd_tiles(const float* __restrict__ imgs, const int* __restrict__ slots,
         x[c] = src[c * hw + gi];
         gv[c] = gsrc[c * hw + gi];
       }
+      const float m = kMasked ? msrc[gi] : 0.0f;
       if (slot == 1) {
-        bwd_brightness(x, gv, sp[0], d, q);
+        bwd_brightness<kMasked>(x, gv, m, sp[0], d, q);
       } else if (slot == 2) {
-        bwd_contrast(x, gv, sp[0], d, q);
+        bwd_contrast<kMasked>(x, gv, m, sp[0], d, q);
       } else if (slot == 3) {
-        bwd_saturation(x, gv, sp[0], d, q);
+        bwd_saturation<kMasked>(x, gv, m, sp[0], d, q);
       } else if (slot == 4) {  // color: one curve and 8 sums per channel
-        d[0] = bwd_curve(curves[0], x[0], gv[0], q);
-        d[1] = bwd_curve(curves[1], x[1], gv[1], q + kCurveSteps);
-        d[2] = bwd_curve(curves[2], x[2], gv[2], q + 2 * kCurveSteps);
+        d[0] = bwd_curve<kMasked>(curves[0], x[0], gv[0], m, q);
+        d[1] = bwd_curve<kMasked>(curves[1], x[1], gv[1], m, q + kCurveSteps);
+        d[2] = bwd_curve<kMasked>(curves[2], x[2], gv[2], m,
+                                  q + 2 * kCurveSteps);
       } else if (slot == 6) {  // tone: one curve, 8 sums over all channels
-        d[0] = bwd_curve(curves[0], x[0], gv[0], q);
-        d[1] = bwd_curve(curves[0], x[1], gv[1], q);
-        d[2] = bwd_curve(curves[0], x[2], gv[2], q);
-      } else if (slot == 8) {  // white: a constant
-        d[0] = d[1] = d[2] = 0.0f;
-      } else {  // 0 and 5: identity
+        d[0] = bwd_curve<kMasked>(curves[0], x[0], gv[0], m, q);
+        d[1] = bwd_curve<kMasked>(curves[0], x[1], gv[1], m, q);
+        d[2] = bwd_curve<kMasked>(curves[0], x[2], gv[2], m, q);
+      } else if (slot == 8) {  // white: a constant, blended into x by m
+        if constexpr (kMasked) {
+          for (int c = 0; c < 3; ++c) blend_ct<true>(1.0f, x[c], gv[c], m, &d[c]);
+        } else {
+          d[0] = d[1] = d[2] = 0.0f;
+        }
+      } else {  // 0 and 5: identity, never blended
         d[0] = gv[0];
         d[1] = gv[1];
         d[2] = gv[2];
@@ -476,6 +559,23 @@ step_bwd_params(const int* __restrict__ slots, const float* __restrict__ params,
   for (int i = 0; i < kMaxParam; ++i) o[i] = dp[i];
 }
 
+template <bool kMasked>
+int launch(const float* imgs, const float* mask, const int* slots,
+           const float* params, const float* g, float* d_img,
+           double* partials, float* d_params, int B, int H, int W,
+           void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
+  const dim3 block(kBlockX, kBlockY);
+  step_bwd_tiles<kMasked><<<grid, block, 0, st>>>(imgs, mask, slots, params,
+                                                  g, d_img, partials, H, W);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  step_bwd_params<<<B, block, 0, st>>>(slots, params, partials, d_params,
+                                       grid.x * grid.y);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -489,16 +589,19 @@ int t2o_step_bwd_launch(const float* imgs, const int* slots,
                         const float* params, const float* g, float* d_img,
                         double* partials, float* d_params, int B, int H, int W,
                         void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
-  const dim3 block(kBlockX, kBlockY);
-  step_bwd_tiles<<<grid, block, 0, st>>>(imgs, slots, params, g, d_img,
-                                         partials, H, W);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  step_bwd_params<<<B, block, 0, st>>>(slots, params, partials, d_params,
-                                       grid.x * grid.y);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(imgs, nullptr, slots, params, g, d_img, partials,
+                       d_params, B, H, W, stream);
+}
+
+// The masked step's backward: as t2o_step_bwd_launch, plus mask (B,1,H,W)
+// f32, which gets no gradient.
+int t2o_step_bwd_masked_launch(const float* imgs, const float* mask,
+                               const int* slots, const float* params,
+                               const float* g, float* d_img, double* partials,
+                               float* d_params, int B, int H, int W,
+                               void* stream) {
+  return launch<true>(imgs, mask, slots, params, g, d_img, partials, d_params,
+                      B, H, W, stream);
 }
 
 const char* t2o_error_string(int err) {

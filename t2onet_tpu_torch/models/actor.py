@@ -96,14 +96,17 @@ class ParamHeads(nn.Module):
 class Actor(nn.Module):
     def __init__(self, cfg: ModelConfig, opcfg: OperatorConfig,
                  vocab_size: int, *, generator: torch.Generator,
-                 explore_prob: float = 0.05):
+                 explore_prob: float = 0.05, word2vec=None):
         """Weights are drawn on the CPU from `generator` by torch's
-        default init; move the actor with `.to(device)`."""
+        default init; move the actor with `.to(device)`. `word2vec`
+        (vocab_size - n_spec_token, word_vec_dim), the GloVe matrix,
+        replaces the word rows of the request embedding; the special
+        tokens' rows stay drawn from `generator`. With
+        cfg.fix_input_embedding the word rows are not trained."""
         super().__init__()
-        if cfg.vis_bf16 or cfg.discrete_param or cfg.fix_input_embedding:
+        if cfg.vis_bf16 or cfg.discrete_param:
             raise NotImplementedError(
-                "vis_bf16, discrete_param and fix_input_embedding are not "
-                "ported yet")
+                "vis_bf16 and discrete_param are not ported yet")
         self.cfg = cfg
         self.opcfg = opcfg
         self.explore_prob = explore_prob
@@ -112,9 +115,10 @@ class Actor(nn.Module):
                                       cfg.resnet_widths)
             self.bn1 = FlaxBatchNorm1d(cfg.vis_feat_dim, eps=1e-5,
                                        momentum=0.1)
-            self.lang_encoder = RNNEncoder(vocab_size, cfg.word_vec_dim,
-                                           cfg.hidden_size, cfg.n_layers,
-                                           pad_id=cfg.null_id)
+            self.lang_encoder = RNNEncoder(
+                vocab_size, cfg.word_vec_dim, cfg.hidden_size, cfg.n_layers,
+                pad_id=cfg.null_id, n_spec_token=cfg.n_spec_token,
+                fix_embedding=cfg.fix_input_embedding)
             self.decoder = DecoderStep(cfg.op_vocab_size, cfg.word_vec_dim,
                                        cfg.decoder_hidden, cfg.n_layers,
                                        cfg.use_attention, cfg.vis_feat_dim)
@@ -122,6 +126,15 @@ class Actor(nn.Module):
                                        cfg.operator_fc_dim)
         self.to_empty(device="cpu")
         init_torch_defaults(self, generator)
+        if word2vec is not None:
+            glove = torch.as_tensor(np.asarray(word2vec, np.float32))
+            rows = (vocab_size - cfg.n_spec_token, cfg.word_vec_dim)
+            if tuple(glove.shape) != rows:
+                raise ValueError(f"word2vec is {tuple(glove.shape)}, the "
+                                 f"embedding's word rows {rows}")
+            with torch.no_grad():
+                self.lang_encoder.embedding.weight[cfg.n_spec_token:] \
+                    .copy_(glove)
 
     def _attn_mask(self, enc_valid):
         """Each request's true length, or with cfg.attend_batch_max every
@@ -170,20 +183,26 @@ class Actor(nn.Module):
         return None, torch.stack(params, dim=1), torch.stack(logprobs, dim=1)
 
     def episode(self, x, img_x, sample: bool = False, generator=None,
-                noise_fn=None, fused_exec: bool = False):
+                noise_fn=None, fused_exec: bool = False, masks=None):
         """Free rollout of decoder_max_len steps. Each step encodes the
         current image, decodes one op (explore smoothing, hard mask, then
         argmax, or with `sample` a Gumbel-max draw over log(probs + 1e-30)
         as `jax.random.categorical` draws; no-repeat update), predicts its
         params and executes it: through the bank, or with `fused_exec`
         through `ops.step.fused_step` (only the selected op, forward and
-        backward; the chain and step_bwd kernels on a CUDA tensor).
+        backward; the chain and step_bwd kernels on a CUDA tensor, their
+        masked twins with `masks`).
 
         :param x: (B, L) request tokens; img_x (B, 3, H, W).
         :param generator: torch.Generator on the actor's device for the
             Gumbel draws (sample=True).
         :param noise_fn: optional fn(shape) -> (B, n_cls) Gumbel noise in
             place of draws from `generator` (tests feed JAX's draws).
+        :param masks: optional (B, n_cls, 1, H, W) per-op ground-truth
+            masks (GIER local edits): each step blends its op's result
+            into the image through the mask of the op it predicted, the
+            JAX package's einsum of one-hot(op) with `masks`, taken here
+            as a gather (the same values, exactly).
         :return: dict with imgs (B, S, 3, H, W), ops (B, S),
             params (B, S, 24), logprobs (B, S, n_cls), attn (B, S, L).
         """
@@ -219,13 +238,18 @@ class Actor(nn.Module):
                 pred_op = torch.argmax(probs, dim=-1)
             op_mask = op_mask * (1.0 - F.one_hot(
                 pred_op, cfg.op_vocab_size).to(op_mask.dtype))
+            step_mask = None
+            if masks is not None:
+                step_mask = masks[torch.arange(b, device=masks.device),
+                                  pred_op].to(img.dtype)
             per_op = self.executor(context)
             if fused_exec:
                 chosen = bank.select_params(pred_op, per_op)
                 img = fused_step(img, vocab_ops_to_slots(pred_op[:, None])
-                                 [:, 0], chosen)
+                                 [:, 0], chosen, mask=step_mask)
             else:
-                img, chosen = bank.execute_bank(img, pred_op, per_op)
+                img, chosen = bank.execute_bank(img, pred_op, per_op,
+                                                mask=step_mask)
             for key, val in (("imgs", img), ("ops", pred_op),
                              ("params", chosen), ("logprobs", logprob),
                              ("attn", attn)):

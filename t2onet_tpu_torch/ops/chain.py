@@ -1,15 +1,17 @@
 """The operator chain: K steps of a selected op per image, in one pass.
 
-`fused_chain` replaces the Pallas `fused_chain` / `_chain_kernel` of
-`t2onet_tpu/ops/pallas_fused.py`. On a CUDA tensor it launches the
-hand-written kernel in `csrc/chain.cu`; on a CPU tensor it runs
+`fused_chain` replaces the Pallas `fused_chain` of
+`t2onet_tpu/ops/pallas_fused.py`: `_chain_kernel`, and with a mask
+`_masked_chain_kernel` (GIER local edits). On a CUDA tensor it launches
+the hand-written kernel in `csrc/chain.cu`; on a CPU tensor it runs
 `fused_chain_reference`, the same function in plain PyTorch. There is no
 fallback from one to the other: a CUDA call that cannot launch raises.
 
 Slot ids (as in the JAX package): 0 identity, 1..8 = brightness,
 contrast, saturation, color, inpaint (identity here), tone, sharpness,
 white. Slots 0 and 5 leave the image as it is (no clamp); every other
-step is `out = clip(op(out, params[b, k]), 0, 1)`. The maths follows
+step is `out = clip(op(out, params[b, k]), 0, 1)`, or with a (B,1,H,W)
+mask m `clip(op(out)*m + out*(1-m), 0, 1)`. The maths follows
 `pallas_fused.py` (not the bank): brightness with eps 1e-12, the
 single-division saturation with its 2^20 scaling, the polynomial cos of
 contrast, and the min-form curves. The kernel does each multiply and add
@@ -31,8 +33,9 @@ TILE = 32                     # output tile side of one kernel block
 SMEM_LIMIT = 232448           # shared memory one Hopper block can use
 
 # Kernel launches by wrapper, incremented only where a kernel is launched
-# ("step_bwd" by ops/step.py:step_bwd).
-LAUNCHES = {"chain": 0, "step_bwd": 0}
+# ("step_bwd" and "step_bwd_masked" by ops/step.py:step_bwd).
+LAUNCHES = {"chain": 0, "chain_masked": 0, "step_bwd": 0,
+            "step_bwd_masked": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -129,18 +132,24 @@ _BRANCHES = {1: _brightness, 2: _contrast, 3: _saturation, 4: _color,
              6: _tone, 7: _sharpness, 8: _white}
 
 
-def fused_chain_reference(imgs, op_slots, params):
+def fused_chain_reference(imgs, op_slots, params, mask=None):
     """Plain PyTorch chain: imgs (B,3,H,W) f32, op_slots (B,K) int,
-    params (B,K,24) f32 -> (B,3,H,W) f32. Out-of-range slots clamp into
-    0..8, as `lax.switch` clamps its index."""
+    params (B,K,24) f32, optional mask (B,1,H,W) -> (B,3,H,W) f32.
+    Out-of-range slots clamp into 0..8, as `lax.switch` clamps its index.
+    With a mask, each executed step is clip(op(x)*m + x*(1-m), 0, 1)."""
     out = imgs
     slots = op_slots.clamp(0, 8)
+    if mask is not None:
+        mask = mask.to(imgs.dtype)
     for k in range(op_slots.shape[1]):
         sk = slots[:, k].view(-1, 1, 1, 1)
         pk = params[:, k]
         nxt = out
         for slot, branch in _BRANCHES.items():
-            nxt = torch.where(sk == slot, _clip01(branch(out, pk)), nxt)
+            y = branch(out, pk)
+            if mask is not None:
+                y = y * mask + out * (1.0 - mask)
+            nxt = torch.where(sk == slot, _clip01(y), nxt)
         out = nxt
     return out
 
@@ -156,12 +165,13 @@ def vocab_ops_to_slots(op_vocab_ids):
 # the CUDA kernel: built at first use (ops/build.py), bound with ctypes
 # ---------------------------------------------------------------------------
 
-def smem_bytes(k: int) -> int:
+def smem_bytes(k: int, masked: bool = False) -> int:
     """Dynamic shared memory of one block for a K-step chain: two
     ping-pong copies of the tile plus a K-pixel halo, three f32 planes
-    each, then the K x 24 params and the K slots (chain.cu's layout)."""
+    each, with a mask one more plane, then the K x 24 params and the K
+    slots (chain.cu's layout)."""
     side = TILE + 2 * k
-    return 2 * 3 * side * side * 4 + k * MAX_PARAM * 4 + k * 4
+    return (7 if masked else 6) * side * side * 4 + k * MAX_PARAM * 4 + k * 4
 
 
 def _library():
@@ -171,10 +181,26 @@ def _library():
         i = ctypes.c_int
         lib.t2o_chain_launch.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.t2o_chain_launch.restype = i
+        lib.t2o_chain_masked_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.t2o_chain_masked_launch.restype = i
     return lib
 
 
-def _check(imgs, op_slots, params):
+def _check_mask(mask, imgs, who):
+    """A (B,1,H,W) float32 contiguous mask on imgs' device."""
+    b, _, h, w = imgs.shape
+    if mask.dtype != torch.float32:
+        raise TypeError(f"{who} wants a float32 mask, got {mask.dtype}")
+    if tuple(mask.shape) != (b, 1, h, w):
+        raise ValueError(f"mask must be {(b, 1, h, w)}, got "
+                         f"{tuple(mask.shape)}")
+    if mask.device != imgs.device:
+        raise ValueError(f"mask is on {mask.device}, imgs on {imgs.device}")
+    if not mask.is_contiguous():
+        raise ValueError("mask must be contiguous")
+
+
+def _check(imgs, op_slots, params, masked=False):
     if imgs.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError(f"fused_chain wants float32 imgs and params, got "
                         f"{imgs.dtype} and {params.dtype}")
@@ -198,37 +224,51 @@ def _check(imgs, op_slots, params):
                              f"{imgs.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if smem_bytes(k) > SMEM_LIMIT:
-        raise ValueError(f"a {k}-step chain needs {smem_bytes(k)} B of shared "
-                         f"memory per block, more than {SMEM_LIMIT}")
+    if smem_bytes(k, masked) > SMEM_LIMIT:
+        raise ValueError(f"a {k}-step chain needs {smem_bytes(k, masked)} B "
+                         f"of shared memory per block, more than "
+                         f"{SMEM_LIMIT}")
     if b > 65535 or -(-h // TILE) > 65535:
         raise ValueError(f"grid too large for batch {b}, height {h}")
 
 
-def fused_chain(imgs, op_slots, params):
+def fused_chain(imgs, op_slots, params, mask=None):
     """Apply per-image op chains.
 
     :param imgs: (B, 3, H, W) float32 in [0, 1].
     :param op_slots: (B, K) int32 slot ids.
     :param params: (B, K, 24) float32.
+    :param mask: optional (B, 1, H, W) in [0, 1]: each step's output is
+        blended into the unedited region (the GIER local edits), cast to
+        imgs' dtype as the JAX package casts it.
     :return: (B, 3, H, W) float32.
     """
     if imgs.device.type == "cpu":
-        return fused_chain_reference(imgs, op_slots, params)
+        return fused_chain_reference(imgs, op_slots, params, mask)
     if imgs.device.type != "cuda":
         raise ValueError(f"fused_chain runs on cpu or cuda, not "
                          f"{imgs.device}")
-    _check(imgs, op_slots, params)
+    masked = mask is not None
+    _check(imgs, op_slots, params, masked)
+    if masked:
+        mask = mask.to(imgs.dtype)
+        _check_mask(mask, imgs, "fused_chain")
     lib = _library()
     b, _, h, w = imgs.shape
     out = torch.empty_like(imgs)
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        rc = lib.t2o_chain_launch(imgs.data_ptr(), op_slots.data_ptr(),
-                                  params.data_ptr(), out.data_ptr(),
-                                  b, h, w, op_slots.shape[1], stream)
+        if masked:
+            rc = lib.t2o_chain_masked_launch(
+                imgs.data_ptr(), mask.data_ptr(), op_slots.data_ptr(),
+                params.data_ptr(), out.data_ptr(), b, h, w,
+                op_slots.shape[1], stream)
+        else:
+            rc = lib.t2o_chain_launch(imgs.data_ptr(), op_slots.data_ptr(),
+                                      params.data_ptr(), out.data_ptr(),
+                                      b, h, w, op_slots.shape[1], stream)
     if rc != 0:
         raise RuntimeError(f"chain kernel launch failed: "
                            f"{lib.t2o_error_string(rc).decode()}")
-    LAUNCHES["chain"] += 1
+    LAUNCHES["chain_masked" if masked else "chain"] += 1
     return out

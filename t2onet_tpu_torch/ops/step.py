@@ -2,11 +2,17 @@
 
 `fused_step` replaces the Pallas `fused_step` of
 `t2onet_tpu/ops/pallas_fused.py` (`_make_fused_step`): the forward is
-`chain.fused_chain` at K=1 (kernel B1 on a CUDA tensor), the backward is
-`step_bwd`, which on a CUDA tensor launches the hand-written kernel of
-`csrc/step_bwd.cu` (it replaces `_step_bwd_kernel`) and on a CPU tensor
+`chain.fused_chain` at K=1 (kernel B1, or B2 with a mask, on a CUDA
+tensor), the backward is `step_bwd`, which on a CUDA tensor launches the
+hand-written kernel of `csrc/step_bwd.cu` (it replaces `_step_bwd_kernel`,
+and with a mask `_masked_step_bwd_kernel`: B3 and B4) and on a CPU tensor
 runs `fused_step_bwd_reference`, the same VJP written out in plain
 PyTorch. Only the selected branch of each image is differentiated.
+
+With a (B,1,H,W) mask m the step is clip(y, 0, 1), y = op(x)*m + x*(1-m):
+with gy = g * clip'(y), the op's cotangent is gy*m, x also gets gy*(1-m)
+directly (first, as JAX's reverse pass adds it), and the mask gets no
+gradient. Masked white passes gy*(1-m); slots 0 and 5 are never blended.
 
 The VJP is JAX's, tie rules included: clip(y, 0, 1) passes half the
 cotangent at y == 0 or 1, a pairwise maximum or minimum splits a tie in
@@ -69,7 +75,21 @@ def _col(p, j):
     return p[:, j].view(-1, 1, 1)
 
 
-def _bwd_brightness(x, g, p):
+def _blend_ct(o, x, g, m):
+    """(the op's cotangent, x's direct term or None) for out = clip(y):
+    y = o, or with a mask m (n, H, W) y = o*m + x*(1-m)."""
+    if m is None:
+        return g * _clip_d(o), None
+    m = m[:, None]
+    gy = g * _clip_d(o * m + x * (1.0 - m))
+    return gy * m, gy * (1.0 - m)
+
+
+def _plus(direct, t):
+    return t if direct is None else direct + t
+
+
+def _bwd_brightness(x, g, p, m=None):
     r, gg, b = x[:, 0], x[:, 1], x[:, 2]
     m1 = torch.maximum(r, gg)
     v = torch.maximum(m1, b)
@@ -78,8 +98,8 @@ def _bwd_brightness(x, g, p):
     c = clip(t, 0.0, 1.0)
     den = v + 1e-12
     k = c / den
-    gc = g * _clip_d(x * k[:, None])
-    dx = gc * k[:, None]
+    gc, direct = _blend_ct(x * k[:, None], x, g, m)
+    dx = _plus(direct, gc * k[:, None])
     ct_k = _csum3(gc * x)
     ct_c = ct_k / den
     ct_den = -((ct_k * (1.0 / (den * den))) * c)
@@ -91,7 +111,7 @@ def _bwd_brightness(x, g, p):
     return dimg, [ct_t * v]
 
 
-def _bwd_contrast(x, g, p):
+def _bwd_contrast(x, g, p, m=None):
     r, gg, b = x[:, 0], x[:, 1], x[:, 2]
     p0 = _col(p, 0)
     c = _SINPI_C
@@ -108,8 +128,8 @@ def _bwd_contrast(x, g, p):
     den = lum + 1e-6
     ratio = clum / den
     k = (1.0 - p0) + p0 * ratio
-    gc = g * _clip_d(x * k[:, None])
-    dx = gc * k[:, None]
+    gc, direct = _blend_ct(x * k[:, None], x, g, m)
+    dx = _plus(direct, gc * k[:, None])
     ct_k = _csum3(gc * x)
     ct_ratio = ct_k * p0
     ct_clum = ct_ratio / den
@@ -133,7 +153,7 @@ def _bwd_contrast(x, g, p):
     return dimg, [ct_k * ratio, ct_k]
 
 
-def _bwd_saturation(x, g, p):
+def _bwd_saturation(x, g, p, m=None):
     r, gg, b = x[:, 0], x[:, 1], x[:, 2]
     m1 = torch.maximum(r, gg)
     v = torch.maximum(m1, b)
@@ -143,13 +163,14 @@ def _bwd_saturation(x, g, p):
     ve = v + 1e-8
     onep = 1.0 + _col(p, 0)
     t = d * onep
-    m = torch.maximum(t, t.new_full((), 0.0))
-    nc = torch.minimum(m, ve)
+    mt = torch.maximum(t, t.new_full((), 0.0))
+    nc = torch.minimum(mt, ve)
     num = nc * _S
     den = d * _S + (1e-12 * _S) * ve
     ratio = num / den
     e = v[:, None] - x
-    gc = g * _clip_d(v[:, None] - ratio[:, None] * e)
+    gc, direct = _blend_ct(v[:, None] - ratio[:, None] * e, x, g, m)
+    dx = _plus(direct, gc * ratio[:, None])
     ngc = -gc
     ct_e = ngc * ratio[:, None]
     ct_ratio = _csum3(ngc * e)
@@ -158,17 +179,17 @@ def _bwd_saturation(x, g, p):
     ct_d = ct_den * _S
     ct_ve = ct_den * (1e-12 * _S)
     ct_nc = ct_num * _S
-    ct_m = ct_nc * _dmin(m, ve)
-    ct_ve = ct_ve + ct_nc * _dmin(ve, m)
+    ct_m = ct_nc * _dmin(mt, ve)
+    ct_ve = ct_ve + ct_nc * _dmin(ve, mt)
     ct_t = ct_m * _dmax(t, t.new_full((), 0.0))
     ct_d = ct_d + ct_t * onep
     ct_v = ((_csum3(gc) + _csum3(ct_e)) + ct_ve) + ct_d
     ct_mn = -ct_d
     ct_n1 = ct_mn * _dmin(n1, b)
     ct_m1 = ct_v * _dmax(m1, b)
-    dr = (gc[:, 0] * ratio + ct_n1 * _dmin(r, gg)) + ct_m1 * _dmax(r, gg)
-    dg = (gc[:, 1] * ratio + ct_n1 * _dmin(gg, r)) + ct_m1 * _dmax(gg, r)
-    db = (gc[:, 2] * ratio + ct_mn * _dmin(b, n1)) + ct_v * _dmax(b, m1)
+    dr = (dx[:, 0] + ct_n1 * _dmin(r, gg)) + ct_m1 * _dmax(r, gg)
+    dg = (dx[:, 1] + ct_n1 * _dmin(gg, r)) + ct_m1 * _dmax(gg, r)
+    db = (dx[:, 2] + ct_mn * _dmin(b, n1)) + ct_v * _dmax(b, m1)
     return torch.stack([dr, dg, db], dim=1), [ct_t * d]
 
 
@@ -184,9 +205,10 @@ def _curve_coeffs(knots):
     return csum, s, a, bj
 
 
-def _bwd_curve(x, g, knots):
-    """x, g (n, C, H, W); knots (n, C|1, 8). Returns d_x and the per-pixel
-    quantities [gc*x, -gc*min(x, j/8) for j = 1..7]."""
+def _bwd_curve(x, g, knots, m=None):
+    """x, g (n, C, H, W); knots (n, C|1, 8); optional mask m (n, H, W).
+    Returns d_x and the per-pixel quantities [gc*x, -gc*min(x, j/8) for
+    j = 1..7], gc the curve's cotangent."""
     _, _, a, bj = _curve_coeffs(knots)
     a = a[..., None, None]
     bj = [t[..., None, None] for t in bj]
@@ -195,9 +217,8 @@ def _bwd_curve(x, g, knots):
     out = a * x
     for j in range(1, CURVE_STEPS):
         out = out - bj[j - 1] * mins[j - 1]
-    gc = g * _clip_d(out)
+    gc, dx = _blend_ct(out, x, g, m)
     ngc = -gc
-    dx = None
     for j in range(CURVE_STEPS - 1, 0, -1):
         term = (ngc * bj[j - 1]) * _dmin(x, x.new_full((), j / CURVE_STEPS))
         dx = term if dx is None else dx + term
@@ -240,14 +261,15 @@ def _shift(t, dy, dx):
     return t
 
 
-def _bwd_sharpness(x, g, p):
+def _bwd_sharpness(x, g, p, m=None):
     p0 = _col(p, 0)[:, None]
     delta = 4.0 * x
     delta = delta - _shift(x, 1, 0) - _shift(x, -1, 0)
     delta = delta - _shift(x, 0, 1) - _shift(x, 0, -1)
-    gc = g * _clip_d(x + p0 * delta)
+    gc, direct = _blend_ct(x + p0 * delta, x, g, m)
     cd = gc * p0
-    d = gc - _shift(cd, 0, 1)           # cd[y, x-1]
+    d = _plus(direct, gc)
+    d = d - _shift(cd, 0, 1)            # cd[y, x-1]
     d = d - _shift(cd, 0, -1)           # cd[y, x+1]
     d = d - _shift(cd, 1, 0)            # cd[y-1, x]
     d = d - _shift(cd, -1, 0)           # cd[y+1, x]
@@ -268,37 +290,48 @@ def _finish_scalar(q, n):
     return out
 
 
-def fused_step_bwd_reference(imgs, op_slots, params, g):
+def _bwd_white(x, g, p, m):
+    """Masked white: y = 1*m + x*(1-m) passes x its direct term only."""
+    return _blend_ct(torch.ones_like(x), x, g, m)[1]
+
+
+def fused_step_bwd_reference(imgs, op_slots, params, g, mask=None):
     """Plain PyTorch VJP of one chain step: imgs, g (B,3,H,W) f32,
     op_slots (B,) int (clamped into 0..8 as `lax.switch` does), params
-    (B,24) f32 -> (d_img (B,3,H,W), d_params (B,24)). Slots 0 and 5 pass
-    g through and slot 8 (white) passes nothing; both give zero
-    d_params."""
+    (B,24) f32, optional mask (B,1,H,W) -> (d_img (B,3,H,W), d_params
+    (B,24)). Slots 0 and 5 pass g through and slot 8 (white) passes
+    nothing, or with a mask gy*(1-m); both give zero d_params."""
     slots = op_slots.clamp(0, 8)
     d_img = torch.zeros_like(imgs)
     d_params = params.new_zeros((imgs.shape[0], MAX_PARAM))
     ident = (slots == 0) | (slots == 5)
     d_img[ident] = g[ident]
-    for slot in (1, 2, 3, 4, 6, 7):
+    if mask is not None:
+        mask = mask.to(imgs.dtype)[:, 0]
+    for slot in (1, 2, 3, 4, 6, 7, 8):
         sel = (slots == slot).nonzero()[:, 0]
-        if sel.numel() == 0:
+        if sel.numel() == 0 or (slot == 8 and mask is None):
             continue
         x, gs, ps = imgs[sel], g[sel], params[sel]
+        ms = None if mask is None else mask[sel]
         n = sel.numel()
+        if slot == 8:
+            d_img[sel] = _bwd_white(x, gs, ps, ms)
+            continue
         if slot == 4:
-            dimg, qs = _bwd_curve(x, gs, ps.reshape(n, 3, CURVE_STEPS))
+            dimg, qs = _bwd_curve(x, gs, ps.reshape(n, 3, CURVE_STEPS), ms)
             q = torch.stack([_sum(t, (2, 3)) for t in qs], dim=2)
             dp = torch.cat([_curve_params(ps[:, 8 * c:8 * c + 8], q[:, c])
                             for c in range(3)], dim=1)
         elif slot == 6:
-            dimg, qs = _bwd_curve(x, gs, ps[:, None, :CURVE_STEPS])
+            dimg, qs = _bwd_curve(x, gs, ps[:, None, :CURVE_STEPS], ms)
             q = torch.stack([_sum(t, (1, 2, 3)) for t in qs], dim=1)
             dp = ps.new_zeros((n, MAX_PARAM))
             dp[:, :CURVE_STEPS] = _curve_params(ps[:, :CURVE_STEPS], q)
         else:
             fn = {1: _bwd_brightness, 2: _bwd_contrast, 3: _bwd_saturation,
                   7: _bwd_sharpness}[slot]
-            dimg, qs = fn(x, gs, ps)
+            dimg, qs = fn(x, gs, ps, ms)
             dims = tuple(range(1, qs[0].ndim))
             q = torch.stack([_sum(t, dims) for t in qs], dim=1)
             if slot == 2:
@@ -320,6 +353,9 @@ def _library():
         i = ctypes.c_int
         lib.t2o_step_bwd_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
         lib.t2o_step_bwd_launch.restype = i
+        lib.t2o_step_bwd_masked_launch.argtypes = [p, p, p, p, p, p, p, p, i,
+                                                   i, i, p]
+        lib.t2o_step_bwd_masked_launch.restype = i
     return lib
 
 
@@ -352,14 +388,18 @@ def _check(imgs, op_slots, params, g):
         raise ValueError(f"grid too large for batch {b}, height {h}")
 
 
-def step_bwd(imgs, op_slots, params, g):
+def step_bwd(imgs, op_slots, params, g, mask=None):
     """VJP of one chain step (see `fused_step_bwd_reference`): the kernel
     for CUDA tensors, the plain version for CPU tensors."""
     if imgs.device.type == "cpu":
-        return fused_step_bwd_reference(imgs, op_slots, params, g)
+        return fused_step_bwd_reference(imgs, op_slots, params, g, mask)
     if imgs.device.type != "cuda":
         raise ValueError(f"step_bwd runs on cpu or cuda, not {imgs.device}")
     _check(imgs, op_slots, params, g)
+    masked = mask is not None
+    if masked:
+        mask = mask.to(imgs.dtype)
+        chain._check_mask(mask, imgs, "step_bwd")
     lib = _library()
     b, _, h, w = imgs.shape
     tiles = -(-h // TILE) * -(-w // TILE)
@@ -370,14 +410,18 @@ def step_bwd(imgs, op_slots, params, g):
                            device=imgs.device)
     with torch.cuda.device(imgs.device):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        rc = lib.t2o_step_bwd_launch(
-            imgs.data_ptr(), op_slots.data_ptr(), params.data_ptr(),
-            g.data_ptr(), d_img.data_ptr(), partials.data_ptr(),
-            d_params.data_ptr(), b, h, w, stream)
+        ptrs = (op_slots.data_ptr(), params.data_ptr(), g.data_ptr(),
+                d_img.data_ptr(), partials.data_ptr(), d_params.data_ptr(),
+                b, h, w, stream)
+        if masked:
+            rc = lib.t2o_step_bwd_masked_launch(imgs.data_ptr(),
+                                                mask.data_ptr(), *ptrs)
+        else:
+            rc = lib.t2o_step_bwd_launch(imgs.data_ptr(), *ptrs)
     if rc != 0:
         raise RuntimeError(f"step_bwd kernel launch failed: "
                            f"{lib.t2o_error_string(rc).decode()}")
-    chain.LAUNCHES["step_bwd"] += 1
+    chain.LAUNCHES["step_bwd_masked" if masked else "step_bwd"] += 1
     return d_img, d_params
 
 
@@ -387,29 +431,34 @@ def step_bwd(imgs, op_slots, params, g):
 
 class _FusedStep(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, imgs, op_slots, params):
-        ctx.save_for_backward(imgs, op_slots, params)
+    def forward(ctx, imgs, op_slots, params, mask):
+        ctx.save_for_backward(imgs, op_slots, params, mask)
         return chain.fused_chain(imgs, op_slots[:, None].contiguous(),
-                                 params[:, None].contiguous())
+                                 params[:, None].contiguous(), mask)
 
     @staticmethod
     def backward(ctx, g):
-        want_img, _, want_params = ctx.needs_input_grad
+        want_img, _, want_params, _ = ctx.needs_input_grad
         if not (want_img or want_params):
-            return None, None, None
-        imgs, op_slots, params = ctx.saved_tensors
-        d_img, d_params = step_bwd(imgs, op_slots, params, g.contiguous())
+            return None, None, None, None
+        imgs, op_slots, params, mask = ctx.saved_tensors
+        d_img, d_params = step_bwd(imgs, op_slots, params, g.contiguous(),
+                                   mask)
         return (d_img if want_img else None, None,
-                d_params if want_params else None)
+                d_params if want_params else None, None)
 
 
-def fused_step(imgs, op_slots, params):
+def fused_step(imgs, op_slots, params, mask=None):
     """Differentiable single chain step (the episode rollout's execute).
 
     :param imgs: (B, 3, H, W) float32 in [0, 1].
     :param op_slots: (B,) int32 slot ids (0 identity, 1..8 executor + 1).
     :param params: (B, 24) float32 chosen parameter rows.
+    :param mask: optional (B, 1, H, W) mask of the local edit (cast to
+        imgs' dtype); it gets no gradient.
     :return: (B, 3, H, W) float32; gradients flow to imgs and params.
     """
+    if mask is not None:
+        mask = mask.detach().to(imgs.dtype).contiguous()
     return _FusedStep.apply(imgs.contiguous(), op_slots.to(torch.int32)
-                            .contiguous(), params.contiguous())
+                            .contiguous(), params.contiguous(), mask)

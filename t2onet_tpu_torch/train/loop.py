@@ -84,13 +84,16 @@ def supervised_step(state: TrainState, batch):
 
 def episode_step(state: TrainState, batch, generator=None, sample=True,
                  fused_exec=False, noise_fn=None):
-    """batch: x (B,L), img_x (B,3,H,W), gt_img (B,3,H,W). With `sample`,
-    ops are drawn with Gumbel noise from `generator` (or `noise_fn`);
+    """batch: x (B,L), img_x (B,3,H,W), gt_img (B,3,H,W), and for GIER's
+    local edits masks_vocab (B,n_cls,1,H,W), the per-op masks each
+    rollout step gathers by its predicted op. With `sample`, ops are
+    drawn with Gumbel noise from `generator` (or `noise_fn`);
     `fused_exec` executes each step through `ops.step.fused_step`."""
     state.actor.train()
     out = state.actor.episode(batch["x"], batch["img_x"], sample=sample,
                               generator=generator, noise_fn=noise_fn,
-                              fused_exec=fused_exec)
+                              fused_exec=fused_exec,
+                              masks=batch.get("masks_vocab"))
     loss = episode_l1_loss(out["imgs"], out["ops"], batch["gt_img"])
     state.apply_gradients(loss)
     return {"L1_loss": loss.detach()}

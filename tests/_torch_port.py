@@ -161,3 +161,214 @@ def port_actor(cfg, vocab_size, params, stats):
                   generator=torch.Generator().manual_seed(0))
     load_jax_variables(actor, params, stats)
     return actor.eval()
+
+
+# ---------------------------------------------------------------------------
+# one training step of each framework, compared
+# ---------------------------------------------------------------------------
+
+def jax_train_state(params, stats, lr):
+    """A JAX TrainState from numpy variables, Adam as the trainer's."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from t2onet_tpu.train import loop as jloop
+
+    tx = optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8)
+    params = jax.tree_util.tree_map(jnp.asarray, params)
+    return jloop.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                            batch_stats=jax.tree_util.tree_map(
+                                jnp.asarray, stats),
+                            opt_state=tx.init(params), tx=tx)
+
+
+def flat(tree):
+    import jax
+
+    return {jax.tree_util.keystr(k): np.asarray(v) for k, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def port_trees(actor, n_layers, grads=False):
+    """convert_state_dict of the port's weights (or gradients: zeros for
+    buffers and for parameters without one) -> flat (params, stats)."""
+    from t2onet_tpu.convert import convert_state_dict
+
+    sd = {k: v.detach().numpy().copy() for k, v in
+          actor.state_dict().items()}
+    if grads:
+        sd = {k: np.zeros_like(v) for k, v in sd.items()}
+        for n, p in actor.named_parameters():
+            if p.grad is not None:
+                sd[n] = p.grad.numpy()
+    p, s = convert_state_dict(sd, n_layers)
+    return flat(p), flat(s)
+
+
+def check_train_step(pstate, jstate1, p_loss, j_loss, params0, n_layers, lr,
+                     stats_rtol=0.0):
+    """The port's state after one step against JAX's (see
+    tests/test_torch_train.py for the tolerances): the loss, every
+    gradient (JAX's recovered from Adam's first moment, mu = 0.1 g), the
+    updated parameters and the BatchNorm statistics (atol 1e-5, plus
+    `stats_rtol` of the value)."""
+    import jax
+
+    np.testing.assert_allclose(float(p_loss), float(j_loss), rtol=1e-5)
+    jg = flat(jax.tree_util.tree_map(lambda m: m / 0.1,
+                                     jstate1.opt_state[0].mu))
+    pg, _ = port_trees(pstate.actor, n_layers, grads=True)
+    assert sorted(pg) == sorted(jg)
+    new_p, new_s = port_trees(pstate.actor, n_layers)
+    old = flat(params0)
+    jp, js = flat(jstate1.params), flat(jstate1.batch_stats)
+    for k in jg:
+        gtol = 2e-3 * np.abs(jg[k]).max() + 1e-8
+        np.testing.assert_allclose(pg[k], jg[k], rtol=1e-3, atol=gtol,
+                                   err_msg=k)
+        clear = np.abs(jg[k]) > max(10 * gtol, 1e-6)
+        np.testing.assert_allclose(new_p[k][clear], jp[k][clear], atol=1e-6,
+                                   rtol=0, err_msg=k)
+        assert (np.abs(new_p[k] - old[k]) <= lr * 1.0001).all(), k
+    for k in js:
+        np.testing.assert_allclose(new_s[k], js[k], atol=1e-5,
+                                   rtol=stats_rtol, err_msg=k)
+
+
+def gumbel_draws(key, shape, steps):
+    """The draws `Actor.episode(sample=True)` makes: per step
+    key, sub = split(key), then categorical(sub, ...) = argmax(logits +
+    gumbel(sub))."""
+    import jax
+    import jax.numpy as jnp
+
+    draws = []
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        g = jax.random.gumbel(sub, shape)
+        logits = jax.random.normal(jax.random.PRNGKey(7), shape)
+        np.testing.assert_array_equal(
+            np.asarray(jnp.argmax(logits + g, axis=-1)),
+            np.asarray(jax.random.categorical(sub, logits, axis=-1)))
+        draws.append(np.asarray(g))
+    return draws
+
+
+# ---------------------------------------------------------------------------
+# GIER: one masked training step of each framework on real data
+# ---------------------------------------------------------------------------
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GIER_DATA = os.path.join(_ROOT, "data_real_gier")
+GIER_ACTS = os.path.join(_ROOT, "data_real_gier_acts", "GIER_actions_set_1")
+GIER_GLOVE_NPY = os.path.join(_ROOT, "data_real_gier_acts",
+                              "GIER_vocabs_glove_feat_3.npy")
+GIER_B, GIER_LR = 4, 1e-3
+
+
+def every_op_masked(masks_vocab):
+    """The batch's real local masks, shared out to the ops that edit
+    globally, so that whatever op a rollout step picks, it is blended."""
+    mv = masks_vocab.copy()
+    local = [mv[i, o] for i in range(mv.shape[0])
+             for o in range(mv.shape[1]) if (mv[i, o] < 1).any()]
+    assert local
+    j = 0
+    for i in range(mv.shape[0]):
+        for o in range(3, mv.shape[1]):
+            if not (mv[i, o] < 1).any():
+                mv[i, o] = local[j % len(local)]
+                j += 1
+    return mv
+
+
+def gier_step_case(cfg):
+    """(JAX actor, params, stats, batch, vocab size, GloVe rows): a real
+    b4 GIER training batch at 16 px (JAX's GIERDatasetAct, shapeAlign,
+    masks loaded, `every_op_masked`) and a seeded init whose word rows
+    are the GloVe matrix."""
+    from t2onet_tpu.data.gier import GIERDatasetAct
+
+    ds = GIERDatasetAct(os.path.join(GIER_DATA, "GIER"),
+                        os.path.join(GIER_DATA, "language"), GIER_ACTS,
+                        "train", data_mode="shapeAlign", is_load_mask=True,
+                        train_img_size=16)
+    nb = next(ds.batches(GIER_B, 1, shuffle=True, seed=5))
+    batch = {k: nb[k] for k in ("x", "y", "img_x", "img_y", "gt_params")}
+    batch["gt_img"] = nb["img_y"][:, -1]
+    batch["masks_vocab"] = every_op_masked(nb["masks_vocab"])
+    vocab = len(ds.vocab2id)
+    ja, params, stats = jax_actor(cfg, vocab, batch["x"], batch["img_x"],
+                                  seed=8, knots_near_one=True)
+    glove = np.load(GIER_GLOVE_NPY)
+    params["lang_encoder"]["embedding"][cfg.n_spec_token:] = glove
+    return ja, params, stats, batch, vocab, glove
+
+
+def gier_train_step_parity(case, cfg, mode):
+    """One step of both frameworks from `gier_step_case`: "supervised",
+    or a masked episode step "greedy_bank", "greedy_fused" (the port's
+    fused_step against JAX's pallas_exec) or "sampled_bank" (JAX's
+    Gumbel draws fed to the port). Checks `check_train_step` and that
+    the GloVe rows got no gradient and kept their values; returns the
+    port's TrainState.
+
+    BN statistics are held within 1e-5 plus 1e-5 of their value: `bn1`
+    normalises 32 visual features over 4 real images per rollout step,
+    and its running variances (~1.1) carry f32 rounding of the rollout
+    images (which differ by at most 3.6e-7) at up to 1.17e-5 absolute
+    (measured; 8.2e-6 through the bank)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from t2onet_tpu.train import loop as jloop
+    from t2onet_tpu_torch.train import loop
+
+    ja, params, stats, batch, vocab, glove = case
+    jstate0 = jax_train_state(params, stats, GIER_LR)
+    pstate = loop.TrainState(port_actor(cfg, vocab, params, stats),
+                             learning_rate=GIER_LR)
+    assert pstate.actor.lang_encoder.fix_embedding
+    if mode == "supervised":
+        keys = ("x", "y", "img_x", "img_y", "gt_params")
+        jb = {k: jnp.asarray(batch[k]) for k in keys}
+        jstate1, jm = jloop.make_supervised_step(ja, donate=False)(jstate0,
+                                                                   jb)
+        pm = loop.supervised_step(
+            pstate, {k: torch.from_numpy(batch[k]) for k in keys})
+        for k in ("op_loss", "param_loss"):
+            np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-5)
+        p_loss, j_loss = pm["loss"], jm["loss"]
+    else:
+        sample = mode.startswith("sampled")
+        fused = mode.endswith("fused")
+        keys = ("x", "img_x", "gt_img", "masks_vocab")
+        key = jax.random.PRNGKey(4)
+        jstate1, jm = jloop.make_episode_step(
+            ja, sample=sample, donate=False, with_masks=True,
+            pallas_exec=fused)(jstate0, {k: jnp.asarray(batch[k])
+                                         for k in keys}, key)
+        noise_fn = None
+        if sample:
+            draws = iter(gumbel_draws(key, (GIER_B, cfg.op_vocab_size),
+                                      cfg.decoder_max_len))
+
+            def noise_fn(shape):
+                return torch.from_numpy(next(draws).copy())
+
+        pm = loop.episode_step(
+            pstate, {k: torch.from_numpy(batch[k]) for k in keys},
+            sample=sample, fused_exec=fused, noise_fn=noise_fn)
+        p_loss, j_loss = pm["L1_loss"], jm["L1_loss"]
+    check_train_step(pstate, jstate1, p_loss, j_loss, params, cfg.n_layers,
+                     GIER_LR, stats_rtol=1e-5)
+    spec = cfg.n_spec_token
+    emb = pstate.actor.lang_encoder.embedding.weight
+    assert not emb.grad[spec:].any()
+    np.testing.assert_array_equal(emb.detach().numpy()[spec:], glove)
+    np.testing.assert_array_equal(
+        np.asarray(jstate1.params["lang_encoder"]["embedding"])[spec:],
+        glove)
+    return pstate

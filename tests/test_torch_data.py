@@ -112,19 +112,21 @@ def test_device_put_batch_on_cpu():
 
 
 def test_cli_flags_and_config_match_jax():
-    """Every flag of the port's trainer is the JAX CLI's, with its default;
-    the config they give is the JAX CLI's with GloVe rows unfrozen (the
-    port has no GloVe embedding, so it freezes no word rows)."""
+    """Every flag of the port's trainer is the JAX CLI's, with its default,
+    but `--device` (for `--cpu`) and `--glove_path` (an .npy copy of the
+    GloVe rows for hosts without h5py; None reads the JAX CLI's .h5); the
+    config they give is the JAX CLI's, GloVe rows frozen by default."""
     pp, jp = argparse.ArgumentParser(), argparse.ArgumentParser()
     common.add_train_args(common.add_base_args(pp))
     jcommon.add_train_args(jcommon.add_base_args(jp))
     got, want = vars(pp.parse_args([])), vars(jp.parse_args([]))
     assert got.pop("device") in ("cpu", "cuda") and want.pop("cpu") is False
+    assert got.pop("glove_path") is None
     assert got == {k: want[k] for k in got}
-    cfg = common.args_to_config(pp.parse_args([]))
-    jcfg = jcommon.args_to_config(jp.parse_args(["--fix_input_embedding",
-                                                 "0"]))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    for flags in ([], ["--fix_input_embedding", "0"]):
+        cfg = common.args_to_config(pp.parse_args(flags))
+        jcfg = jcommon.args_to_config(jp.parse_args(flags))
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert dataclasses.asdict(pconfig.Config()) == \
         dataclasses.asdict(jconfig.Config())
 

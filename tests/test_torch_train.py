@@ -30,18 +30,18 @@ import dataclasses
 import numpy as np
 import jax
 import jax.numpy as jnp
-import optax
 import pytest
 import torch
 
 from t2onet_tpu.config import ModelConfig as JModelConfig
-from t2onet_tpu.convert import convert_state_dict
 from t2onet_tpu.data.synthetic import SyntheticFiveK as JSyntheticFiveK
 from t2onet_tpu.data.synthetic import synthetic_vocab
 from t2onet_tpu.models.actor import Actor as JActor
 from t2onet_tpu.train import loop as jloop
 from t2onet_tpu_torch.train import loop
-from tests._torch_port import jax_actor, port_actor
+from tests._torch_port import (check_train_step, flat as _flat,
+                               gumbel_draws as _gumbel_draws, jax_actor,
+                               jax_train_state, port_actor, port_trees)
 
 torch.set_num_threads(2)
 
@@ -95,12 +95,16 @@ def sup_once(init, jax_steps):
 
 
 def _jax_state(params, stats):
-    tx = optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8)
-    params = jax.tree_util.tree_map(jnp.asarray, params)
-    return jloop.TrainState(step=jnp.zeros((), jnp.int32), params=params,
-                            batch_stats=jax.tree_util.tree_map(
-                                jnp.asarray, stats),
-                            opt_state=tx.init(params), tx=tx)
+    return jax_train_state(params, stats, LR)
+
+
+def _port_trees(actor, grads=False):
+    return port_trees(actor, CFG.n_layers, grads)
+
+
+def _check(pstate, jstate1, p_loss, j_loss, params0):
+    check_train_step(pstate, jstate1, p_loss, j_loss, params0,
+                     CFG.n_layers, LR)
 
 
 def _port_state(params, stats):
@@ -116,49 +120,8 @@ def _j(batch, keys):
     return {k: jnp.asarray(batch[k]) for k in keys}
 
 
-def _flat(tree):
-    return {jax.tree_util.keystr(k): np.asarray(v) for k, v in
-            jax.tree_util.tree_flatten_with_path(tree)[0]}
-
-
-def _port_trees(actor, grads=False):
-    """convert_state_dict of the port's weights (or gradients: zeros for
-    buffers and for parameters without one) -> flat (params, stats)."""
-    sd = {k: v.detach().numpy().copy() for k, v in
-          actor.state_dict().items()}
-    if grads:
-        sd = {k: np.zeros_like(v) for k, v in sd.items()}
-        for n, p in actor.named_parameters():
-            if p.grad is not None:
-                sd[n] = p.grad.numpy()
-    p, s = convert_state_dict(sd, CFG.n_layers)
-    return _flat(p), _flat(s)
-
-
 SUP = ("x", "y", "img_x", "img_y", "gt_params")
 EPI = ("x", "img_x", "gt_img")
-
-
-def _check(pstate, jstate1, p_loss, j_loss, params0):
-    np.testing.assert_allclose(float(p_loss), float(j_loss), rtol=1e-5)
-    jg = _flat(jax.tree_util.tree_map(lambda m: m / 0.1,
-                                      jstate1.opt_state[0].mu))
-    pg, _ = _port_trees(pstate.actor, grads=True)
-    assert sorted(pg) == sorted(jg)
-    new_p, new_s = _port_trees(pstate.actor)
-    old = _flat(params0)
-    jp, js = _flat(jstate1.params), _flat(jstate1.batch_stats)
-    for k in jg:
-        gtol = 2e-3 * np.abs(jg[k]).max() + 1e-8
-        np.testing.assert_allclose(pg[k], jg[k], rtol=1e-3, atol=gtol,
-                                   err_msg=k)
-        clear = np.abs(jg[k]) > max(10 * gtol, 1e-6)
-        np.testing.assert_allclose(new_p[k][clear], jp[k][clear], atol=1e-6,
-                                   rtol=0, err_msg=k)
-        assert (np.abs(new_p[k] - old[k]) <= LR * 1.0001).all(), k
-    for k in js:
-        np.testing.assert_allclose(new_s[k], js[k], atol=1e-5, rtol=0,
-                                   err_msg=k)
 
 
 def test_supervised_step_matches_jax(init, sup_once):
@@ -168,22 +131,6 @@ def test_supervised_step_matches_jax(init, sup_once):
         np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-5)
     _check(pstate, jstate1, pm["loss"], jm["loss"], params)
     assert pstate.step == int(jstate1.step) == 1
-
-
-def _gumbel_draws(key, shape, steps):
-    """The draws `Actor.episode(sample=True)` makes: per step
-    key, sub = split(key), then categorical(sub, ...) = argmax(logits +
-    gumbel(sub))."""
-    draws = []
-    for _ in range(steps):
-        key, sub = jax.random.split(key)
-        g = jax.random.gumbel(sub, shape)
-        logits = jax.random.normal(jax.random.PRNGKey(7), shape)
-        np.testing.assert_array_equal(
-            np.asarray(jnp.argmax(logits + g, axis=-1)),
-            np.asarray(jax.random.categorical(sub, logits, axis=-1)))
-        draws.append(np.asarray(g))
-    return draws
 
 
 @pytest.mark.parametrize("mode", ["greedy_bank", "greedy_fused",
