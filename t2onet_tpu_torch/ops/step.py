@@ -25,12 +25,17 @@ d_params is the sum over all pixels of each image. Both versions first
 reduce per-pixel quantities (one for the scalar ops, two for contrast,
 eight per curve; f32 values summed in f64 and rounded once) and then turn
 those sums into the 24 parameter gradients with the same f32 scalar
-arithmetic, in the order JAX's reverse pass accumulates it.
+arithmetic, in the order JAX's reverse pass accumulates it. The kernel
+does it in one launch (`plan` gives its cut): the last block of each
+image to finish sums the image's block sums in block order, so a call
+gives the same bits every time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,8 +44,11 @@ from t2onet_tpu_torch.ops.color import clip
 
 MAX_PARAM = chain.MAX_PARAM
 CURVE_STEPS = chain.CURVE_STEPS
-TILE = 32                       # output tile side of one kernel block
-NQ = 24                         # per-image partial sums of the backward
+TILE = 32                       # sharpness tile side; a pointwise run is
+TILE_PIXELS = TILE * TILE       # as many pixels: 4 per thread of 256
+NQ = 24                         # f64 sums per kernel block, at most
+MAX_BATCH = 65535               # the grid's y limit
+MIN_BLOCKS_PER_SM = 4           # the kernel's kMinBlocks (see plan)
 _S = 1048576.0                  # 2^20, the saturation quotient's scaling
 _SINPI_C = chain._SINPI_C
 
@@ -346,17 +354,61 @@ def fused_step_bwd_reference(imgs, op_slots, params, g, mask=None):
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
+class StepPlan(NamedTuple):
+    """How the kernel cuts one (b, 3, h, w) call (csrc/step_bwd.cu)."""
+    tiles: int               # 32x32 tiles per image
+    tiles_per_block: int     # a block's tiles, or 1,024-pixel runs
+    blocks_per_image: int    # the grid is (blocks_per_image, b)
+    vector: bool             # 16-byte loads and stores of the flat planes
+    partials: int            # f64 scratch: NQ per block
+    counters: int            # int32 counters, one per image
+
+    @property
+    def scratch_bytes(self):
+        """One buffer per call: the f64 partials, then the counters (which
+        the launch zeroes)."""
+        return 8 * self.partials + 4 * self.counters
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b, h, w, aligned=True, sms=132):
+    """The kernel's decomposition, the counterpart of `chain.smem_bytes`.
+
+    A block takes `tiles_per_block` 32x32 tiles of a sharpness image, or
+    as many runs of 1,024 pixels of another image's flat planes: the
+    largest of 4, 2 and 1 that still gives the grid MIN_BLOCKS_PER_SM
+    blocks on each of the card's `sms` multiprocessors (more pixels per
+    block spread each block's fixed cost, its sums and its count, thinner).
+    MIN_BLOCKS_PER_SM is the kernel's `kMinBlocks` (its
+    `__launch_bounds__`, how many blocks the registers let a SM hold): the
+    two change together. The pointwise paths use 16-byte accesses when
+    h*w % 4 == 0 and every tensor is 16-byte `aligned`."""
+    tiles = -(-h // TILE) * -(-w // TILE)
+    for tpb in (4, 2, 1):
+        blocks = -(-tiles // tpb)
+        if b * blocks >= MIN_BLOCKS_PER_SM * sms:
+            break
+    return StepPlan(tiles, tpb, blocks, aligned and (h * w) % 4 == 0,
+                    b * blocks * NQ, b)
+
+
 def _library():
     lib = build.library("step_bwd")
     if lib.t2o_step_bwd_launch.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.t2o_step_bwd_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+        lib.t2o_step_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                            i, i, i, p]
         lib.t2o_step_bwd_launch.restype = i
-        lib.t2o_step_bwd_masked_launch.argtypes = [p, p, p, p, p, p, p, p, i,
-                                                   i, i, p]
+        lib.t2o_step_bwd_masked_launch.argtypes = [p, p, p, p, p, p, p, p, p,
+                                                   i, i, i, i, i, i, p]
         lib.t2o_step_bwd_masked_launch.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(imgs, op_slots, params, g):
@@ -384,8 +436,8 @@ def _check(imgs, op_slots, params, g):
                              f"{imgs.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if b > 65535 or -(-h // TILE) > 65535:
-        raise ValueError(f"grid too large for batch {b}, height {h}")
+    if b > MAX_BATCH:
+        raise ValueError(f"grid too large for batch {b}")
 
 
 def step_bwd(imgs, op_slots, params, g, mask=None):
@@ -402,17 +454,22 @@ def step_bwd(imgs, op_slots, params, g, mask=None):
         chain._check_mask(mask, imgs, "step_bwd")
     lib = _library()
     b, _, h, w = imgs.shape
-    tiles = -(-h // TILE) * -(-w // TILE)
+    dev = imgs.device
     d_img = torch.empty_like(imgs)
-    partials = torch.empty((b, tiles, NQ), dtype=torch.float64,
-                           device=imgs.device)
-    d_params = torch.empty((b, MAX_PARAM), dtype=torch.float32,
-                           device=imgs.device)
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        ptrs = (op_slots.data_ptr(), params.data_ptr(), g.data_ptr(),
-                d_img.data_ptr(), partials.data_ptr(), d_params.data_ptr(),
-                b, h, w, stream)
+    d_params = torch.empty((b, MAX_PARAM), dtype=torch.float32, device=dev)
+    tensors = (imgs, g, d_img) + ((mask,) if masked else ())
+    cut = plan(b, h, w, all(t.data_ptr() % 16 == 0 for t in tensors),
+               _sm_count(dev.index))
+    # the call's own scratch (a CUDA graph captures it with the call, and
+    # the launch's memset of the counters as a node of its own)
+    scratch = torch.empty(cut.scratch_bytes, dtype=torch.uint8, device=dev)
+    partials = scratch.data_ptr()
+    ptrs = (op_slots.data_ptr(), params.data_ptr(), g.data_ptr(),
+            d_img.data_ptr(), partials, partials + 8 * cut.partials,
+            d_params.data_ptr(), b, h, w, cut.tiles_per_block,
+            cut.blocks_per_image, int(cut.vector),
+            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
         if masked:
             rc = lib.t2o_step_bwd_masked_launch(imgs.data_ptr(),
                                                 mask.data_ptr(), *ptrs)
