@@ -14,12 +14,13 @@ Phases (any failure exits non-zero):
    its .npy copy in data_real_gier_acts/);
 4. chain kernel against plain: the chain kernel (B1) and its plain
    PyTorch version on the same tensors on the card, at the serving shapes,
-   at the chain benchmark's (bench.py's draw: b128, 512 px, K5) and at
-   K=1 as the trainer's fused step runs it (b64, 128 px, and b128 x
-   512 px, every slot), max abs error <= 1e-5 (both round every multiply
-   and add alone, in the same order), then both timed: call time (CUDA
-   events around one wrapper call, `time_ms`) and the kernel's device
-   time (a CUDA graph of 40 calls, `device_ms`);
+   at the chain benchmark's (bench.py's draw: b128, 512 px, K5), at K=8
+   and K=16 with an all-sharpness image (the largest halos), and at K=1
+   as the trainer's fused step runs it (b64, 128 px, and b128 x 512 px,
+   every slot), bit-exact (both round every multiply and add alone, in
+   the same order), then both timed: call time (CUDA events around one
+   wrapper call, `time_ms`) and the kernel's device time (a CUDA graph of
+   40 calls, `device_ms`);
 5. step backward against plain: the step_bwd kernel (B3) and its plain
    version at the trainer's shape (b64, 128 px, every slot), at
    b128 x 512 px and at odd shapes, on images with exact 0 / 0.5 / 1,
@@ -30,14 +31,18 @@ Phases (any failure exits non-zero):
    timed, the kernel by call and device time, with B1 at K=1 beside;
 6. masked kernels against plain: the masked chain (B2) at b128 x 512 px
    x K5 (bench.py's draw, a mask binary in one half and fractional in
-   the other), at K=1 at the GIER trainer's b64 x 128 px, at 2 x 33 x 97
-   and on real GIER masks (RLE-decoded, resized); the masked step
+   the other), at K=1 at the GIER trainer's b64 x 128 px, at 2 x 33 x 97,
+   at K=8 and on real GIER masks (RLE-decoded, resized); the masked step
    backward (B4) at b64 x 128 px, b128 x 512 px and odd shapes, with the
    tie patches half inside and half outside the mask; the checks of
    phases 4 and 5; under an all-ones mask B2 must equal B1 and B4 equal
    B3 bit for bit; both timed beside B1 and B3; then (6b) B3 and B4 on
    slot-uniform batches at b64 x 128 px, device time per slot against
-   the bound of the bytes that slot moves;
+   the bound of the bytes that slot moves; then (6c) B1 and B2 on
+   slot-uniform chains at b64 x 128 px x K1 and B1 at b128 x 512 px x
+   K5, device and call time per slot against its bound (bytes or
+   instructions, whichever is larger; an unmasked chain with a white step
+   need not read its input, nor run the steps before it);
 7. serve: a full-width actor (ModelConfig() defaults, 918-token
    vocabulary, seeded random weights) behind ServingEngine on the card:
    32 requests over two shape buckets with the launch counters read
@@ -98,7 +103,7 @@ from t2onet_tpu_torch.ops.operators import OP_NAMES
 from t2onet_tpu_torch.serve import ServingEngine
 from t2onet_tpu_torch.train import loop
 
-CHAIN_ATOL = 1e-5
+CHAIN_ATOL = 0.0      # bit-exact: both round each op alone, in one order
 STEP_IMG_ATOL = 1e-6
 STEP_PARAM_RTOL = 1e-5
 TRAIN_RUN_DIR = os.path.join("output", "chip_smoke_train")
@@ -195,6 +200,14 @@ def random_case(b, h, w, k=5, seed=1, identity=False):
     return imgs, slots, params
 
 
+def sharp_case(b, h, w, k, seed):
+    """random_case with every step of image 0 a sharpness step: its tile
+    path holds the largest halo a k-step chain can need."""
+    imgs, slots, params = random_case(b, h, w, k=k, seed=seed)
+    slots[0] = 7
+    return imgs, slots, params
+
+
 def step_k1_case(b, h, w, seed):
     """step_case's images, slots and params as a one-step chain."""
     imgs, slots, params, _ = step_case(b, h, w, seed)
@@ -283,6 +296,9 @@ def kernel_phase():
         "1x64x1024": random_case(1, 64, 1024, seed=4),
         "3x320x448": random_case(3, 320, 448, seed=5),
         "2x33x97": random_case(2, 33, 97, seed=6),
+        # the GIER decoder's length and the longest chain the kernel takes
+        "3x320x448 K8": sharp_case(3, 320, 448, 8, seed=8),
+        "2x33x97 K16": sharp_case(2, 33, 97, 16, seed=9),
         "identity 4x128x128": random_case(4, 128, 128, seed=7, identity=True),
         # the fused step's forward: phase 4's images at K=1
         "trainer b64 128x128 K1": step_k1_case(64, 128, 128, seed=10),
@@ -298,7 +314,7 @@ def kernel_phase():
         log(f"chain vs plain [{name}]: max abs err {err:.3e}")
         if not err <= CHAIN_ATOL:
             fail(f"chain kernel disagrees with its plain version on {name}: "
-                 f"{err} > {CHAIN_ATOL}")
+                 f"max abs err {err}, want {CHAIN_ATOL}")
         if name.startswith("identity") and not torch.equal(out, args[0]):
             fail("an all-identity chain changed the image")
         worst = max(worst, err)
@@ -331,7 +347,8 @@ def kernel_phase():
         f"plain {plain_ms:.4f} ms ({b * k / plain_ms * 1e3:.1f} "
         f"op-applications/s); call times medians of 2x20 calls after 3 "
         f"warm-ups, device times medians of 5 graph replays of 40 calls")
-    hbm = 2 * imgs.numel() * 4
+    hbm = sum(chain_steps(r, False)[1] for r in np.asarray(slots.cpu())) \
+        * 512 * 512 * 4
     log(f"  kernel moves {hbm / 1e6:.1f} MB of device memory: "
         f"{hbm / dev['bench b128 512x512 K5'] / 1e6:.1f} GB/s")
     serve_args = to_card(*cases["serve b8 512x512 K5"])
@@ -341,18 +358,18 @@ def kernel_phase():
         f"ms call, {dev['serve b8 512x512 K5']:.4f} ms device; b64 128x128 "
         f"K1 (the FiveK step's forward) {dev['trainer b64 128x128 K1']:.4f} "
         f"ms device")
-    bd, by = bound(6, slots, 512, 512, FWD_OPS, 0)
+    bd, by = chain_bound(slots, 512, 512, False)
     log(f"  bound at b{b} 512x512 K{k}: {bd:.4f} ms ({by})")
     k1_slots = to_card(*cases["trainer b64 128x128 K1"])[1]
     return {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bd, "bound_by": by,
             "device_ms": dev["bench b128 512x512 K5"],
             "device_ms_b8_512_serve": dev["serve b8 512x512 K5"],
-            "bound_ms_b8_512_serve": bound(6, serve_args[1], 512, 512,
-                                           FWD_OPS, 0)[0],
+            "bound_ms_b8_512_serve": chain_bound(serve_args[1], 512, 512,
+                                                 False)[0],
             "device_ms_b64_128_k1": dev["trainer b64 128x128 K1"],
-            "bound_ms_b64_128_k1": bound(6, k1_slots, 128, 128, FWD_OPS,
-                                         0)[0]}
+            "bound_ms_b64_128_k1": chain_bound(k1_slots, 128, 128,
+                                               False)[0]}
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -464,27 +481,62 @@ def step_kernel_phase():
 
 
 # -- phase 6 ------------------------------------------------------------------
-# f32 operations per pixel (three channels) of one executed step, counted
-# from csrc/chain.cu and csrc/step_bwd.cu (approximate; min, max, compare
-# and select count as one each): forward by slot, its backward, and what
-# the mask blend adds to each.
-FWD_OPS = {0: 0, 1: 16, 2: 32, 3: 28, 4: 67, 5: 0, 6: 67, 7: 27, 8: 9}
-BWD_OPS = {0: 0, 1: 60, 2: 110, 3: 95, 4: 160, 5: 0, 6: 160, 7: 60, 8: 0}
-MASK_FWD_OPS, MASK_BWD_OPS = 12, 27
+# f32 instructions per pixel (three channels) of one executed step, counted
+# from csrc/chain.cu and csrc/step_bwd.cu: each add, multiply, min, max,
+# compare or select one (a clip is a max and a min); work done once per
+# block and step (curve coefficients, 1 + p) is left out. An IEEE f32
+# division (div.rn.f32, no fast math) compiles for sm_90a to DIV_OPS
+# instructions on its usual path (cuobjdump -sass of csrc/chain.cu):
+# MUFU.RCP, FCHK, 5 FFMA, and a branch round the slow path with its
+# BSSY/BSYNC pair.
+# Forward by slot, what the mask blend adds to it ((1 - m), then y*m +
+# x*(1 - m) per channel), and the backward, whose slots 1-3 hold three
+# divisions each.
+DIV_OPS = 10
+FWD_OPS = {0: 0, 1: 15 + DIV_OPS, 2: 35 + DIV_OPS, 3: 28 + DIV_OPS, 4: 72,
+           5: 0, 6: 72, 7: 27, 8: 0}
+BWD_OPS = {0: 0, 1: 57 + 3 * DIV_OPS, 2: 107 + 3 * DIV_OPS,
+           3: 92 + 3 * DIV_OPS, 4: 160, 5: 0, 6: 160, 7: 60, 8: 0}
+MASK_FWD_OPS, MASK_BWD_OPS = 10, 27
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
-PEAK_F32_S = 67e12              # H100 SXM f32 outside the tensor cores
+# un-fused f32 instructions a second on the H100 SXM: 128 lanes x 132 SMs
+# x 1.98 GHz. The kernels are built with -fmad=false, so a multiply and an
+# add are two instructions, not one FMA (the 67 TFLOP/s of the data sheet
+# count an FMA as two operations).
+PEAK_F32_S = 33.5e12
 
 
-def bound(planes, slots, h, w, ops, extra_ops):
-    """(bound_ms, bound_by): the larger of the planes of b*h*w f32 values
-    moved once over the memory rate and the operations the slots need
-    over the f32 rate."""
-    b = slots.shape[0]
-    n_ops = sum(ops[int(s)] + (extra_ops if int(s) not in (0, 5) else 0)
-                for s in np.asarray(slots.cpu()).ravel()) * h * w
-    t_bytes = planes * b * h * w * 4 / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_S * 1e3
+def larger(t_bytes, t_ops):
+    """(bound_ms, bound_by) from the bytes' and the instructions' times."""
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chain_steps(row, masked):
+    """(steps, planes) of one image's chain, its slots clamped as the
+    kernel clamps them: the steps its output depends on and the f32 planes
+    of h*w values it must move. Unmasked, a white step sets every pixel to
+    1 whatever came before it, so only the steps after the last one count
+    and the input is not read: 3 planes written. Otherwise the input is
+    read and the output written (6; the mask makes 7)."""
+    row = [min(max(int(v), 0), 8) for v in row]
+    if not masked and 8 in row:
+        return row[len(row) - row[::-1].index(8):], 3
+    return row, 7 if masked else 6
+
+
+def chain_bound(slots, h, w, masked):
+    """(bound_ms, bound_by) of a chain call on (B, K) slots: each image's
+    planes (chain_steps) moved once over the memory rate, against the f32
+    instructions of the steps it needs (FWD_OPS, and MASK_FWD_OPS for each
+    executed step of a masked chain) over the instruction rate."""
+    n_planes = n_ops = 0
+    for row in np.asarray(slots.cpu()).reshape(slots.shape[0], -1):
+        steps, planes = chain_steps(row, masked)
+        n_planes += planes
+        n_ops += sum(FWD_OPS[v] + (MASK_FWD_OPS if masked and v not in (0, 5)
+                                   else 0) for v in steps)
+    return larger(n_planes * h * w * 4 / PEAK_BYTES_S * 1e3,
+                  n_ops * h * w / PEAK_F32_S * 1e3)
 
 
 def step_planes(slot, masked):
@@ -500,15 +552,13 @@ def step_planes(slot, masked):
 
 
 def step_bound(slots, h, w, masked):
-    """bound() for the step backward, with each image's bytes by its slot
-    (step_planes); the (B, 24) params and d_params are left out."""
+    """chain_bound() for the step backward, with each image's bytes by its
+    slot (step_planes); the (B, 24) params and d_params are left out."""
     s = [int(v) for v in np.asarray(slots.cpu()).ravel()]
     n_ops = sum(BWD_OPS[v] + (MASK_BWD_OPS if masked and v not in (0, 5)
                               else 0) for v in s) * h * w
-    t_bytes = sum(step_planes(v, masked) for v in s) * h * w * 4 \
-        / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return larger(sum(step_planes(v, masked) for v in s) * h * w * 4
+                  / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3)
 
 
 def slot_phase():
@@ -535,6 +585,42 @@ def slot_phase():
             f"B3 {row['b3_device_ms']:.4f} ms device (bound "
             f"{row['b3_bound_ms']:.4f}), B4 {row['b4_device_ms']:.4f} ms "
             f"(bound {row['b4_bound_ms']:.4f})")
+    return rows
+
+
+def chain_slot_phase():
+    """Phase 6c: B1 and B2 on slot-uniform chains, every step of every
+    image the same slot: B1 and B2 at the trainers' b64 x 128 px x K1, B1
+    at b128 x 512 px x K5 (bench_workload's images and params). Device
+    and call time per slot against its bound. Slots 0 and 5 show the fixed
+    cost of a call, brightness (the cheapest op) what a pointwise step
+    adds to it, color and tone the arithmetic, sharpness the halo."""
+    imgs, _, params, _ = step_case(64, 128, 128, seed=10)
+    mask = step_mask(64, 128, 128, 21)
+    big, _, big_params = bench_workload()
+    shapes = (("B1", "b64 128x128 K1", imgs, params[:, None], None),
+              ("B2", "b64 128x128 K1", imgs, params[:, None], mask),
+              ("B1", "b128 512x512 K5", big, big_params, None))
+    rows = []
+    for s in range(9):
+        op = OP_NAMES[s - 1] if s else "identity"
+        for who, shape, im, pa, m in shapes:
+            slots = np.full(pa.shape[:2], s, np.int32)
+            args = to_card(im, slots, np.ascontiguousarray(pa),
+                           *(() if m is None else (m,)))
+            dev = statistics.median(device_ms(chain.fused_chain, rotations(
+                args, 2 * args[0].numel() * 4)))
+            call = statistics.median(time_ms(lambda: chain.fused_chain(
+                *args)))
+            bd, by = chain_bound(args[1], im.shape[2], im.shape[3],
+                                 m is not None)
+            rows.append({"kernel": who, "shape": shape, "slot": s,
+                         "device_ms": dev, "call_ms": call, "bound_ms": bd,
+                         "bound_by": by})
+            log(f"slot-uniform chain {who} {shape}, slot {s} ({op}): "
+                f"{dev:.4f} ms device, {call:.4f} ms call; bound {bd:.4f} "
+                f"ms ({by})")
+            del args
     return rows
 
 
@@ -585,6 +671,8 @@ def masked_chain_phase():
         "bench b128 512x512 K5": bench + (half_mask(128, 512, 512, 20),),
         "trainer b64 128x128 K1": k1 + (step_mask(64, 128, 128, 21),),
         "2x33x97 K5": odd + (half_mask(2, 33, 97, 22),),
+        "3x320x448 K8": sharp_case(3, 320, 448, 8, seed=8)
+        + (half_mask(3, 320, 448, 23),),
         f"real GIER masks b{real_m.shape[0]} 128x128 K5": real + (real_m,),
     }
     worst = 0.0
@@ -601,7 +689,7 @@ def masked_chain_phase():
             f"all-ones mask equals B1: {same}")
         if not err <= CHAIN_ATOL:
             fail(f"masked chain kernel disagrees with its plain version on "
-                 f"{name}: {err} > {CHAIN_ATOL}")
+                 f"{name}: max abs err {err}, want {CHAIN_ATOL}")
         if not same:
             fail(f"masked chain under an all-ones mask differs from the "
                  f"unmasked chain on {name}")
@@ -631,7 +719,7 @@ def masked_chain_phase():
         dv = statistics.median(device_ms(chain.fused_chain, rotations(
             args, 2 * imgs.numel() * 4)))
         b, h, w = imgs.shape[0], imgs.shape[2], imgs.shape[3]
-        bd, by = bound(7, slots, h, w, FWD_OPS, MASK_FWD_OPS)
+        bd, by = chain_bound(slots, h, w, True)
         log(f"masked chain {name}: kernel {k:.4f} ms call, {dv:.4f} ms "
             f"device ({7 * b * h * w * 4 / dv / 1e6:.1f} GB/s), plain "
             f"{pl:.4f} ms, B1 on the same inputs {u:.4f} ms call; bound "
@@ -1275,6 +1363,7 @@ def main():
     mc = masked_chain_phase()
     ms = masked_step_phase()
     slots = slot_phase()
+    chain_slots = chain_slot_phase()
     serve_launches = serve_phase()
     state, train_launches = train_phase()
     t = train_timing_phase(state)
@@ -1348,7 +1437,8 @@ def main():
         "bound_ms_b128_512": ms["bound_ms_b128_512"],
         "device_ms": ms["device_ms"],
         "device_ms_b128_512": ms["device_ms_b128_512"]}],
-        "step_bwd_slots_b64_128": slots, "train": t, "gier_train": gt}
+        "step_bwd_slots_b64_128": slots, "chain_slots": chain_slots,
+        "train": t, "gier_train": gt}
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

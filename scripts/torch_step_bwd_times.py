@@ -1,6 +1,6 @@
-"""Device and call times of the port's four kernels, the step backward's
-(B3, B4) per-slot times and its kernels' compiler budget, for one tree of
-the port on one CUDA card.
+"""Device and call times of the port's four kernels, their per-slot times
+(B3 and B4, then B1 and B2) and the compiler's budget for every kernel,
+for one tree of the port on one CUDA card.
 
     PYTHONPATH=<tree> python3 scripts/torch_step_bwd_times.py --label NAME \
         [--train_steps] [--out FILE]
@@ -12,8 +12,10 @@ run parent, change, change, parent in one command on one card. Prints
 ptxas's lines for every kernel, then per kernel and shape the device time
 (a CUDA graph of 40 calls, chip_smoke.device_ms), the call time (CUDA
 events around one wrapper call, chip_smoke.time_ms) and, for B3 and B4,
-each CUDA kernel's own time from torch.profiler; then the slot-uniform
-table at b64 x 128 px. --train_steps then also runs chip_smoke's phases 8
+each CUDA kernel's own time from torch.profiler, with every kernel's
+bound (chip_smoke.chain_bound, step_bound); then the slot-uniform tables of
+chip_smoke's phases 6b (B3, B4 at b64 x 128 px) and 6c (B1, B2 at b64 x
+128 px x K1, B1 at b128 x 512 px x K5). --train_steps then also runs chip_smoke's phases 8
 and 10 (both trainers, 8 iterations at full width, then each step timed on
 batches already on the card, and the GIER masked episode step's kernels
 profiled). Whether the kernels are right is chip_smoke.py's to check. The
@@ -54,6 +56,8 @@ def main(argv=None):
     out = {"label": a.label, "card": smi, "kernels": {}}
     cases = {
         "B1 b128x512x512 K5": (chain.fused_chain, cs.bench_workload()),
+        "B1 b8x512x512 K5": (chain.fused_chain,
+                             cs.random_case(8, 512, 512, seed=2)),
         "B1 b64x128x128 K1": (chain.fused_chain,
                               cs.step_k1_case(64, 128, 128, seed=10)),
         "B2 b128x512x512 K5": (chain.fused_chain, cs.bench_workload()
@@ -74,16 +78,21 @@ def main(argv=None):
         call = cs.time_ms(lambda: fn(*args))
         rec = {"device_ms": statistics.median(dev), "device_ms_all": dev,
                "call_ms": statistics.median(call)}
+        h, w = args[0].shape[2:]
         if fn is step.step_bwd:
-            h, w = args[0].shape[2:]
             rec["bound_ms"] = cs.step_bound(args[1], h, w, len(args) == 5)[0]
             rec["kernels_us"] = cs.profiled_us(lambda: fn(*args), 20)
+        else:
+            rec["bound_ms"] = cs.chain_bound(args[1], h, w,
+                                             len(args) == 4)[0]
         out["kernels"][name] = rec
         cs.log(f"{name}: device {rec['device_ms']:.4f} ms (replays "
                f"{[round(x, 4) for x in dev]}), call {rec['call_ms']:.4f} ms"
-               + (f", bound {rec['bound_ms']:.4f} ms; profiler µs per call "
-                  f"{rec['kernels_us']}" if "bound_ms" in rec else ""))
+               f", bound {rec['bound_ms']:.4f} ms"
+               + (f"; profiler µs per call {rec['kernels_us']}"
+                  if "kernels_us" in rec else ""))
     out["slots_b64_128"] = cs.slot_phase()
+    out["chain_slots"] = cs.chain_slot_phase()
     if a.train_steps:
         state, _ = cs.train_phase()
         out["train"] = cs.train_timing_phase(state)

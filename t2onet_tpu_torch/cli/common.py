@@ -20,9 +20,9 @@ from t2onet_tpu_torch.config import (Config, ModelConfig, OperatorConfig,
 
 
 def add_base_args(p: argparse.ArgumentParser):
-    p.add_argument("--device", default="cuda" if torch.cuda.is_available()
-                   else "cpu", help="torch device: cuda (default when a "
-                   "card is present), cuda:N or cpu")
+    p.add_argument("--device", default="cuda", help="torch device: cuda "
+                   "(the default), cuda:N or cpu; cuda where PyTorch finds "
+                   "no card raises")
     # run / data
     p.add_argument("--dataset", default="FiveK")
     p.add_argument("--run_dir", default=None)
@@ -67,6 +67,17 @@ def add_base_args(p: argparse.ArgumentParser):
     p.add_argument("--brightness_range", type=float, default=2.0)
     p.add_argument("--curve_steps", type=int, default=8)
     return p
+
+
+def resolve_device(name: str) -> torch.device:
+    """`--device` as a torch.device. An entry point runs on the card
+    unless its caller asks for the CPU: asking for CUDA where PyTorch finds
+    no card raises, rather than carry on on the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: PyTorch finds no CUDA card "
+                           f"here; pass --device cpu to run on the CPU")
+    return device
 
 
 def add_train_args(p: argparse.ArgumentParser):

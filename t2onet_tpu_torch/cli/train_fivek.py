@@ -13,6 +13,9 @@ fused step runs the masked kernels.
 Usage (synthetic, no image files needed):
   python -m t2onet_tpu_torch.cli.train_fivek --synthetic --num_iters 200 \\
       --batch_size 16 --img_size 64
+
+It runs on the card (`--device cuda`, the default) and raises where
+PyTorch finds none; `--device cpu` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ def main(argv=None, parser=None):
     """Train; returns the final TrainState. `parser` defaults to
     `train_parser()` (cli/train_gier.py passes its own)."""
     a = (parser or train_parser()).parse_args(argv)
-    device = torch.device(a.device)
+    device = common.resolve_device(a.device)
     run_dir = common.resolve_run_dir(a)
 
     train_ds, vocab2id, w2v = common.build_dataset_and_vocab(

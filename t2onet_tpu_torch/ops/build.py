@@ -10,6 +10,7 @@ imported: the first `library(name)` (or `build()`) does it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -100,3 +101,12 @@ def library(name: str):
         lib.t2o_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return _libs[name]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index) -> int:
+    """The multiprocessors of CUDA device `index`, which the kernels' plans
+    fill first."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -15,12 +15,19 @@ mask m `clip(op(out)*m + out*(1-m), 0, 1)`. The maths follows
 `pallas_fused.py` (not the bank): brightness with eps 1e-12, the
 single-division saturation with its 2^20 scaling, the polynomial cos of
 contrast, and the min-form curves. The kernel does each multiply and add
-in the same order, rounded on its own, so the two agree to a few ulp.
+in the same order, rounded on its own, so the two agree bit for bit.
+`plan` says how the kernel cuts a call: a flat path in registers for
+images whose chain has no sharpness step, 32x32 tiles with a halo for the
+others. Unmasked, a white step sets every pixel to 1 whatever its input,
+so a chain with no sharpness step after its last white one runs only the
+steps after it, on the flat path, and reads no input.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +36,16 @@ from t2onet_tpu_torch.ops.color import clip
 
 MAX_PARAM = 24
 CURVE_STEPS = 8
-TILE = 32                     # output tile side of one kernel block
+TILE = 32                     # output tile side of the tile path; a flat
+TILE_PIXELS = TILE * TILE     # run is as many pixels: 4 per thread of 256
+THREADS = 256                 # a kernel block's threads
+MAX_STEPS = 16                # the longest chain the kernel takes (kMaxSteps)
+MAX_BATCH = 65535             # the grid's y limit
+# The kernel's instantiations (chain.cu's launch): the tile path's pixels
+# per thread, fixed at compile time, and the blocks per SM that its
+# registers are held to (kMinBlocks: see plan).
+INSTANCES = {5: 4, 7: 3, 9: 3, 16: 2}
+WAVES = 2                     # the grid fills the card at least this often
 SMEM_LIMIT = 232448           # shared memory one Hopper block can use
 
 # Kernel launches by wrapper, incremented only where a kernel is launched
@@ -165,13 +181,48 @@ def vocab_ops_to_slots(op_vocab_ids):
 # the CUDA kernel: built at first use (ops/build.py), bound with ctypes
 # ---------------------------------------------------------------------------
 
-def smem_bytes(k: int, masked: bool = False) -> int:
-    """Dynamic shared memory of one block for a K-step chain: two
-    ping-pong copies of the tile plus a K-pixel halo, three f32 planes
-    each, with a mask one more plane, then the K x 24 params and the K
-    slots (chain.cu's layout)."""
+class ChainPlan(NamedTuple):
+    """How the kernel cuts one (b, 3, h, w) call of a k-step chain
+    (csrc/chain.cu)."""
+    tiles_per_block: int     # a block's tiles, or 1,024-pixel runs
+    blocks_per_image: int    # the grid is (blocks_per_image, b)
+    vector: bool             # 16-byte loads and stores of the flat planes
+    pixels_per_thread: int   # the tile path's, 0 when k > MAX_STEPS
+    smem_bytes: int          # dynamic shared memory of a block
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b, h, w, k, aligned=True, sms=132):
+    """The kernel's decomposition, the counterpart of `step.plan`.
+
+    A block takes `tiles_per_block` 32x32 tiles of an image whose chain
+    has a sharpness step, or as many runs of 1,024 pixels of another
+    image's flat planes: the largest of 4, 2 and 1 that still gives the
+    grid WAVES times the blocks that the card's `sms` multiprocessors hold
+    at once (more pixels per block spread each block's fixed cost, its
+    params and curves, thinner; a second wave evens out blocks of unequal
+    cost, flat against tile). The tile path holds a tile and its halo of
+    up to k pixels, (32 + 2k)^2, in registers: `pixels_per_thread` is the
+    smallest instantiation that holds them, which also fixes the blocks a
+    multiprocessor holds (INSTANCES, the kernel's `__launch_bounds__`: the
+    two change together). Its shared memory is one copy of the three
+    planes for a sharpness step's neighbours, the same with a mask. The
+    flat path uses 16-byte accesses when h*w % 4 == 0 and every tensor is
+    16-byte `aligned`."""
     side = TILE + 2 * k
-    return (7 if masked else 6) * side * side * 4 + k * MAX_PARAM * 4 + k * 4
+    need = -(-side * side // THREADS)
+    npt = next((n for n in sorted(INSTANCES) if n >= need), 0)
+    tiles = -(-h // TILE) * -(-w // TILE)
+    for tpb in (4, 2, 1):
+        blocks = -(-tiles // tpb)
+        if b * blocks >= WAVES * INSTANCES.get(npt, 1) * sms:
+            break
+    return ChainPlan(tpb, blocks, aligned and (h * w) % 4 == 0, npt,
+                     3 * side * side * 4)
+
+
+# the longest chain's planes fit in a block's shared memory
+assert plan(1, 1, 1, MAX_STEPS).smem_bytes <= SMEM_LIMIT
 
 
 def _library():
@@ -179,9 +230,9 @@ def _library():
     if lib.t2o_chain_launch.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.t2o_chain_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.t2o_chain_launch.argtypes = [p, p, p, p] + [i] * 9 + [p]
         lib.t2o_chain_launch.restype = i
-        lib.t2o_chain_masked_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.t2o_chain_masked_launch.argtypes = [p] * 5 + [i] * 9 + [p]
         lib.t2o_chain_masked_launch.restype = i
     return lib
 
@@ -200,7 +251,7 @@ def _check_mask(mask, imgs, who):
         raise ValueError("mask must be contiguous")
 
 
-def _check(imgs, op_slots, params, masked=False):
+def _check(imgs, op_slots, params):
     if imgs.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError(f"fused_chain wants float32 imgs and params, got "
                         f"{imgs.dtype} and {params.dtype}")
@@ -209,7 +260,7 @@ def _check(imgs, op_slots, params, masked=False):
                         f"{op_slots.dtype}")
     if imgs.ndim != 4 or imgs.shape[1] != 3:
         raise ValueError(f"imgs must be (B, 3, H, W), got {tuple(imgs.shape)}")
-    b, _, h, w = imgs.shape
+    b = imgs.shape[0]
     if op_slots.ndim != 2 or op_slots.shape[0] != b:
         raise ValueError(f"op_slots must be (B, K) with B={b}, got "
                          f"{tuple(op_slots.shape)}")
@@ -224,19 +275,21 @@ def _check(imgs, op_slots, params, masked=False):
                              f"{imgs.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if smem_bytes(k, masked) > SMEM_LIMIT:
-        raise ValueError(f"a {k}-step chain needs {smem_bytes(k, masked)} B "
-                         f"of shared memory per block, more than "
-                         f"{SMEM_LIMIT}")
-    if b > 65535 or -(-h // TILE) > 65535:
-        raise ValueError(f"grid too large for batch {b}, height {h}")
+    if k > MAX_STEPS:
+        raise ValueError(f"the chain kernel takes at most {MAX_STEPS} steps, "
+                         f"not {k}")
+    if b > MAX_BATCH:
+        raise ValueError(f"grid too large for batch {b}")
 
 
 def fused_chain(imgs, op_slots, params, mask=None):
     """Apply per-image op chains.
 
     :param imgs: (B, 3, H, W) float32 in [0, 1].
-    :param op_slots: (B, K) int32 slot ids.
+    :param op_slots: (B, K) int32 slot ids. On a CUDA tensor K is at most
+        MAX_STEPS (16, the tile path's largest instantiation): a longer
+        chain raises before any launch (the JAX kernel has no limit; the
+        default config decodes 5 steps, the GIER trainer's 8).
     :param params: (B, K, 24) float32.
     :param mask: optional (B, 1, H, W) in [0, 1]: each step's output is
         blended into the unedited region (the GIER local edits), cast to
@@ -249,24 +302,28 @@ def fused_chain(imgs, op_slots, params, mask=None):
         raise ValueError(f"fused_chain runs on cpu or cuda, not "
                          f"{imgs.device}")
     masked = mask is not None
-    _check(imgs, op_slots, params, masked)
+    _check(imgs, op_slots, params)
     if masked:
         mask = mask.to(imgs.dtype)
         _check_mask(mask, imgs, "fused_chain")
     lib = _library()
     b, _, h, w = imgs.shape
+    k = op_slots.shape[1]
+    dev = imgs.device
     out = torch.empty_like(imgs)
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream(imgs.device).cuda_stream
+    tensors = (imgs, out) + ((mask,) if masked else ())
+    cut = plan(b, h, w, k, all(t.data_ptr() % 16 == 0 for t in tensors),
+               build.sm_count(dev.index))
+    ptrs = (op_slots.data_ptr(), params.data_ptr(), out.data_ptr(), b, h, w,
+            k, cut.tiles_per_block, cut.blocks_per_image, int(cut.vector),
+            cut.pixels_per_thread, cut.smem_bytes,
+            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
         if masked:
-            rc = lib.t2o_chain_masked_launch(
-                imgs.data_ptr(), mask.data_ptr(), op_slots.data_ptr(),
-                params.data_ptr(), out.data_ptr(), b, h, w,
-                op_slots.shape[1], stream)
+            rc = lib.t2o_chain_masked_launch(imgs.data_ptr(), mask.data_ptr(),
+                                             *ptrs)
         else:
-            rc = lib.t2o_chain_launch(imgs.data_ptr(), op_slots.data_ptr(),
-                                      params.data_ptr(), out.data_ptr(),
-                                      b, h, w, op_slots.shape[1], stream)
+            rc = lib.t2o_chain_launch(imgs.data_ptr(), *ptrs)
     if rc != 0:
         raise RuntimeError(f"chain kernel launch failed: "
                            f"{lib.t2o_error_string(rc).decode()}")

@@ -372,7 +372,7 @@ class StepPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def plan(b, h, w, aligned=True, sms=132):
-    """The kernel's decomposition, the counterpart of `chain.smem_bytes`.
+    """The kernel's decomposition, the counterpart of `chain.plan`.
 
     A block takes `tiles_per_block` 32x32 tiles of a sharpness image, or
     as many runs of 1,024 pixels of another image's flat planes: the
@@ -404,11 +404,6 @@ def _library():
                                                    i, i, i, i, i, i, p]
         lib.t2o_step_bwd_masked_launch.restype = i
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(imgs, op_slots, params, g):
@@ -459,7 +454,7 @@ def step_bwd(imgs, op_slots, params, g, mask=None):
     d_params = torch.empty((b, MAX_PARAM), dtype=torch.float32, device=dev)
     tensors = (imgs, g, d_img) + ((mask,) if masked else ())
     cut = plan(b, h, w, all(t.data_ptr() % 16 == 0 for t in tensors),
-               _sm_count(dev.index))
+               build.sm_count(dev.index))
     # the call's own scratch (a CUDA graph captures it with the call, and
     # the launch's memset of the counters as a node of its own)
     scratch = torch.empty(cut.scratch_bytes, dtype=torch.uint8, device=dev)

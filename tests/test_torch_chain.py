@@ -113,6 +113,28 @@ def test_chain_keeps_nan_like_jax():
     np.testing.assert_allclose(got[fin], expect[fin], atol=ATOL, rtol=0)
 
 
+def test_white_step_forgets_the_input():
+    """Unmasked, a white step sets every pixel to 1 whatever came before
+    it, NaN included: each image's chain equals its steps after the last
+    white step run on planes of ones, bit for bit. The kernel's flat path
+    reads no input for such a chain, and its bound counts no read."""
+    imgs, _, params = _workload(b=3, k=5, seed=6)
+    slots = np.array([[1, 8, 7, 2, 6],        # sharpness after white
+                      [7, 8, 8, 3, 1],        # two white steps
+                      [4, 6, 7, 3, 8]], np.int32)   # white last
+    got = _compare(imgs, slots, params)
+    imgs[:, :, :4] = np.nan
+    poisoned = chain.fused_chain(torch.from_numpy(imgs),
+                                 torch.from_numpy(slots),
+                                 torch.from_numpy(params)).numpy()
+    np.testing.assert_array_equal(poisoned, got)
+    for i, k0 in enumerate((2, 3, 5)):
+        ones = torch.ones((1, 3) + imgs.shape[2:])
+        rest = chain.fused_chain(ones, torch.from_numpy(slots[i:i + 1, k0:]),
+                                 torch.from_numpy(params[i:i + 1, k0:]))
+        np.testing.assert_array_equal(rest.numpy()[0], got[i])
+
+
 _END_ROWS = np.array([[3, 4, 2, 5, 6],        # END at step 2
                       [3, 4, 5, 6, 9],        # no END
                       [2, 3, 4, 5, 6],        # END first
@@ -167,5 +189,12 @@ def test_fused_chain_refuses_other_devices():
 
 
 def test_smem_sizes():
-    assert chain.smem_bytes(5) == 2 * 3 * 42 * 42 * 4 + 5 * 24 * 4 + 5 * 4
-    assert chain.smem_bytes(32) <= chain.SMEM_LIMIT < chain.smem_bytes(33)
+    """A block's shared memory is one copy of the three planes of a tile
+    and its K-pixel halo; the longest chain the kernel takes fits, and a
+    longer one is refused before any launch."""
+    assert chain.plan(2, 8, 8, 5).smem_bytes == 3 * 42 * 42 * 4
+    assert chain.plan(2, 8, 8, chain.MAX_STEPS).smem_bytes \
+        <= chain.SMEM_LIMIT
+    chain._check(*_valid_args(k=chain.MAX_STEPS))
+    with pytest.raises(ValueError):
+        chain._check(*_valid_args(k=chain.MAX_STEPS + 1))

@@ -120,7 +120,7 @@ def test_cli_flags_and_config_match_jax():
     common.add_train_args(common.add_base_args(pp))
     jcommon.add_train_args(jcommon.add_base_args(jp))
     got, want = vars(pp.parse_args([])), vars(jp.parse_args([]))
-    assert got.pop("device") in ("cpu", "cuda") and want.pop("cpu") is False
+    assert got.pop("device") == "cuda" and want.pop("cpu") is False
     assert got.pop("glove_path") is None
     assert got == {k: want[k] for k in got}
     for flags in ([], ["--fix_input_embedding", "0"]):
@@ -137,6 +137,21 @@ TINY = ["--synthetic", "--device", "cpu", "--synthetic_n", "16",
         "8", "--operator_fc_dim", "8", "--resnet_widths", "4,4,8,8",
         "--vis_feat_dim", "8", "--print_every", "2", "--checkpoint_every",
         "2", "--val_batches", "1"]
+
+
+def test_device_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    """`--device` defaults to cuda, and a trainer asked for CUDA where
+    PyTorch finds no card raises before it builds anything, rather than
+    run on the CPU; --device cpu runs there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    i = TINY.index("--device")
+    argv = TINY[:i] + TINY[i + 2:] + ["--run_dir", str(tmp_path / "run")]
+    assert train_fivek.train_parser().parse_args(argv).device == "cuda"
+    for flags in ([], ["--device", "cuda:0"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            train_fivek.main(argv + flags)
+    assert not (tmp_path / "run").exists()
+    assert common.resolve_device("cpu") == torch.device("cpu")
 
 
 def _same_state(a, b):

@@ -260,10 +260,17 @@ def test_kernel_wrappers_reject_bad_masks(fault):
 
 
 def test_masked_smem_size():
+    """The mask is read only at the pixel being written, so it has no
+    plane in shared memory: B2's is B1's, and a masked chain of the
+    longest length passes the checks."""
     side = chain.TILE + 2 * 5
-    assert chain.smem_bytes(5, masked=True) == \
-        chain.smem_bytes(5) + side * side * 4
-    assert chain.smem_bytes(25, masked=True) <= chain.SMEM_LIMIT
+    assert chain.plan(2, 8, 16, 5).smem_bytes == 3 * side * side * 4
+    imgs = torch.zeros(2, 3, 8, 16)
+    k = chain.MAX_STEPS
+    chain._check(imgs, torch.zeros(2, k, dtype=torch.int32),
+                 torch.zeros(2, k, 24))
+    chain._check_mask(torch.zeros(2, 1, 8, 16), imgs, "test")
+    assert chain.plan(2, 8, 16, k).smem_bytes <= chain.SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
