@@ -1,26 +1,34 @@
-"""Drive the PyTorch port's serving and training paths once on one CUDA
-card.
+"""Drive the PyTorch port's serving, training and evaluation paths once
+on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
 
 1. device: a CUDA card of compute capability 9.0, with TF32 off for
-   matmuls and cuDNN convolutions so that f32 means f32;
+   matmuls and cuDNN convolutions so that f32 means f32 (the port's own
+   switch, `precision.set_cuda_precision`, which its entry points set);
 2. build: every kernel source of t2onet_tpu_torch/csrc/ with nvcc, one
    process per source, side by side;
-3. host packages: which of cv2, PIL and h5py import (cv2 must: the GIER
-   trainer reads JPEGs with it; without h5py the GloVe matrix comes from
-   its .npy copy in data_real_gier_acts/);
+3. host packages: which of cv2, PIL, h5py, matplotlib and scipy import
+   (cv2 must: the datasets read JPEGs with it; scipy must: the eval's
+   host SSIM; without h5py the GloVe matrices come from their .npy copies
+   in data_real_gier_acts/ and data_real_h2h_acts/; without matplotlib
+   the eval gallery draws its attention heatmaps with cv2);
 4. chain kernel against plain: the chain kernel (B1) and its plain
    PyTorch version on the same tensors on the card, at the serving shapes,
    at the chain benchmark's (bench.py's draw: b128, 512 px, K5), at K=8
    and K=16 with an all-sharpness image (the largest halos), and at K=1
    as the trainer's fused step runs it (b64, 128 px, and b128 x 512 px,
-   every slot), bit-exact (both round every multiply and add alone, in
-   the same order), then both timed: call time (CUDA events around one
-   wrapper call, `time_ms`) and the kernel's device time (a CUDA graph of
-   40 calls, `device_ms`);
+   every slot), and at K=1 as the eval's rollout runs it (b1 on a real
+   FiveK image edge-padded to its 640 x 640 bucket, every slot, and on a
+   576 x 1024 bucket, and the variance probe's b10 at the image's own
+   600 x 600, every slot among the 10), bit-exact (both round every
+   multiply and add alone, in the same order), then both timed: call
+   time (CUDA events around one wrapper call, `time_ms`) and the
+   kernel's device time (a CUDA graph of 40 calls, `device_ms`), the
+   eval's shapes slot by slot with the plain version's call time beside
+   (phase 4b);
 5. step backward against plain: the step_bwd kernel (B3) and its plain
    version at the trainer's shape (b64, 128 px, every slot), at
    b128 x 512 px and at odd shapes, on images with exact 0 / 0.5 / 1,
@@ -52,7 +60,8 @@ Phases (any failure exits non-zero):
    ModelConfig() widths, batch 64, 128 px, 8 iterations (4 of each
    phase) through the fused step kernels, with the launch counters read
    around the run: finite losses, changed weights, a checkpoint, and
-   chain = step_bwd = 5 launches per episode iteration; then each
+   chain = step_bwd = 5 launches per episode iteration (the validation's
+   greedy rollout adds 5 of chain); then each
    phase's step time on batches already on the card, and the episode
    step through the fused kernels against the bank;
 9. card vs CPU: one episode step of a full-width actor from the same
@@ -64,14 +73,30 @@ Phases (any failure exits non-zero):
    GloVe word rows frozen, decoder_max_len 8, batch 64, 128 px, 8
    iterations: finite losses, changed weights, frozen GloVe rows, a
    checkpoint, and chain_masked = step_bwd_masked = 8 launches per
-   episode iteration with no unmasked launch; then the host's ms per
+   episode iteration, no unmasked step backward and 8 unmasked chains
+   (the validation's greedy rollout, without masks); then the host's ms per
    batch, each phase's step time on batches already on the card, and
    the masked episode step's device time from torch.profiler;
 11. GIER card vs CPU: one sampled masked episode step of a full-width
    GIER actor, b8 real items at 64 px with real local masks on every op
    (so that each executed step blends through one), the same
    weights and noise, B2/B4 on the card against the plain versions on
-   the CPU, within phase 9's bounds.
+   the CPU, within phase 9's bounds;
+12. FiveK eval: `t2onet_tpu_torch.cli.test_fivek` on the repo's 50 real
+   FiveK test pairs (data_real_h2h, short side 600, 640 x 640 buckets)
+   from a checkpoint_best.pt of a full-width seeded random actor (GloVe
+   rows from the .npy), gallery on, then the variance probe: finite
+   metrics, and chain = 5 launches per pair and per probe image, no
+   other kernel; ms per pair on the host clock by stage (image load,
+   rollout, host metrics, gallery), and the first 4 pairs' rollouts
+   profiled (torch.profiler: their device time, and the chain kernel's
+   device time and launches per pair); then the first 4 pairs and the
+   first 2 probe images on the CPU from the same checkpoint (the fused
+   step's plain version): the same programs, L1 and SSIM within 1e-4, the
+   probe's variance within 1e-3 of the CPU's, relatively;
+13. GIER eval: `t2onet_tpu_torch.cli.test_gier` on the real GIER test
+   split (57 requests) the same way, 8 launches per request and per
+   probe image.
 
 The last three lines of stdout are the kernels JSON line, the card's
 name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
@@ -94,14 +119,17 @@ import torch
 from t2onet_tpu_torch.cli import common, train_fivek
 from t2onet_tpu_torch.config import (FIVEK_VOCAB_SIZE, ModelConfig,
                                      OperatorConfig)
+from t2onet_tpu_torch.data.fivek import load_infer_img_short_size_bounded
 from t2onet_tpu_torch.data.loader import device_put_batch
 from t2onet_tpu_torch.data.synthetic import SyntheticFiveK, synthetic_vocab
 from t2onet_tpu_torch.data.text import parse_sent
 from t2onet_tpu_torch.models.actor import Actor
 from t2onet_tpu_torch.ops import build, chain, step
 from t2onet_tpu_torch.ops.operators import OP_NAMES
+from t2onet_tpu_torch.precision import set_cuda_precision
 from t2onet_tpu_torch.serve import ServingEngine
 from t2onet_tpu_torch.train import loop
+from t2onet_tpu_torch.train.checkpoint import CheckpointManager
 
 CHAIN_ATOL = 0.0      # bit-exact: both round each op alone, in one order
 STEP_IMG_ATOL = 1e-6
@@ -136,9 +164,12 @@ def device_phase():
     log(f"nvidia-smi: {smi}")
     if cap != (9, 0):
         fail(f"compute capability {cap}: the kernels are built for sm_90a")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("TF32 off for matmul and cuDNN")
+    set_cuda_precision()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    log(f"TF32 off for matmul and cuDNN (allow_tf32: {tf32})")
+    if any(tf32):
+        fail("set_cuda_precision left TF32 on")
     return smi
 
 
@@ -159,14 +190,22 @@ def build_phase():
 # -- phase 3 ------------------------------------------------------------------
 def host_packages_phase():
     """Which host packages the data path can import here: cv2 reads the
-    JPEGs, h5py the GloVe .h5 (the .npy copy stands in without it)."""
-    import importlib.util
+    JPEGs, scipy computes the eval's host SSIM, h5py the GloVe .h5 (the
+    .npy copies stand in without it), matplotlib draws the eval gallery's
+    attention heatmaps (cv2 draws them without it)."""
+    import importlib
 
-    found = {m: importlib.util.find_spec(m) is not None
-             for m in ("cv2", "PIL", "h5py")}
-    log(f"host packages: {found}")
-    if not found["cv2"]:
-        fail("cv2 is missing: the GIER trainer cannot read its JPEGs")
+    found = {}
+    for m in ("cv2", "PIL", "h5py", "matplotlib", "scipy"):
+        try:
+            importlib.import_module(m)
+            found[m] = True
+        except ImportError:
+            found[m] = False
+    log(f"host packages (import): {found}")
+    for m in ("cv2", "scipy"):
+        if not found[m]:
+            fail(f"{m} is missing: the eval's data path needs it")
     return found
 
 
@@ -370,6 +409,91 @@ def kernel_phase():
             "device_ms_b64_128_k1": dev["trainer b64 128x128 K1"],
             "bound_ms_b64_128_k1": chain_bound(k1_slots, 128, 128,
                                                False)[0]}
+
+
+FIVEK_TEST_IMAGE = os.path.join("data_real_h2h", "FiveK", "images",
+                                "3458_O.jpg")
+EVAL_BUCKETS = {"640x640": (600, 600), "576x1024": (576, 1000)}
+PROBE_BATCH = 10           # the variance probe's requests per image
+
+
+def eval_image(h, w):
+    """A real FiveK test input as the eval hands it to the rollout:
+    short-side-600 (resized to h x w when that is not its own shape) and
+    edge-padded to its 64-px bucket."""
+    import cv2
+
+    from t2onet_tpu_torch.evals.bucketing import pad_to_bucket
+
+    img = load_infer_img_short_size_bounded(FIVEK_TEST_IMAGE)
+    if img.shape[1:] != (h, w):
+        img = cv2.resize(img.transpose(1, 2, 0), (w, h)).transpose(2, 0, 1)
+    return pad_to_bucket(np.ascontiguousarray(img))[0][None]
+
+
+def eval_chain_phase():
+    """Phase 4b: B1 at K=1 on b1 buckets, as each eval rollout step runs
+    it: a real FiveK image in its 640 x 640 bucket and one in a 576 x 1024
+    bucket, each slot in turn; bit-exact against the plain version, then
+    device time, call time, the plain version's call time and the bound
+    per slot."""
+    rng = np.random.default_rng(24)
+    params = rng.uniform(0.1, 0.6, (1, 1, 24)).astype(np.float32)
+    rows, worst = [], 0.0
+    for bucket, (h, w) in EVAL_BUCKETS.items():
+        img = eval_image(h, w)
+        for s in range(9):
+            args = to_card(img, np.full((1, 1), s, np.int32), params)
+            out = chain.fused_chain(*args)
+            torch.cuda.synchronize()
+            err = max_err(out, chain.fused_chain_reference(*args))
+            worst = max(worst, err)
+            if not err <= CHAIN_ATOL:
+                fail(f"chain kernel disagrees with its plain version on the "
+                     f"eval's b1 {bucket} K1, slot {s}: max abs err {err}")
+            dev = statistics.median(device_ms(chain.fused_chain, rotations(
+                args, 2 * args[0].numel() * 4)))
+            call = statistics.median(time_ms(lambda: chain.fused_chain(
+                *args)))
+            plain = statistics.median(time_ms(
+                lambda: chain.fused_chain_reference(*args), iters=10))
+            bd, by = chain_bound(args[1], img.shape[2], img.shape[3], False)
+            rows.append({"bucket": bucket, "slot": s, "device_ms": dev,
+                         "call_ms": call, "plain_ms": plain, "bound_ms": bd,
+                         "bound_by": by})
+            op = OP_NAMES[s - 1] if s else "identity"
+            log(f"chain vs plain [eval b1 {bucket} K1, slot {s} ({op})]: max "
+                f"abs err {err:.3e}; {dev:.4f} ms device, {call:.4f} ms "
+                f"call, plain {plain:.4f} ms call; bound {bd:.4f} ms ({by})")
+    # the variance probe's batch: one test image under the 10 requests,
+    # b10 at its own 600 x 600 (no bucket; 600 is no multiple of the
+    # 32-px tile, so the edge tiles are partial), every slot among them
+    img = load_infer_img_short_size_bounded(FIVEK_TEST_IMAGE)
+    args = to_card(np.repeat(img[None], PROBE_BATCH, 0),
+                   (np.arange(PROBE_BATCH) % 9).astype(np.int32)[:, None],
+                   rng.uniform(0.1, 0.6, (PROBE_BATCH, 1, 24))
+                   .astype(np.float32))
+    out = chain.fused_chain(*args)
+    torch.cuda.synchronize()
+    err = max_err(out, chain.fused_chain_reference(*args))
+    worst = max(worst, err)
+    if not err <= CHAIN_ATOL:
+        fail(f"chain kernel disagrees with its plain version on the "
+             f"variance probe's b{PROBE_BATCH} 600x600 K1: max abs err {err}")
+    probe = {"shape": f"b{PROBE_BATCH} 600x600 K1", "device_ms":
+             statistics.median(device_ms(chain.fused_chain, rotations(
+                 args, 2 * args[0].numel() * 4))),
+             "call_ms": statistics.median(time_ms(
+                 lambda: chain.fused_chain(*args))),
+             "plain_ms": statistics.median(time_ms(
+                 lambda: chain.fused_chain_reference(*args), iters=10))}
+    probe["bound_ms"], probe["bound_by"] = chain_bound(args[1], 600, 600,
+                                                       False)
+    log(f"chain vs plain [variance probe b{PROBE_BATCH} 600x600 K1, slots "
+        f"0-8]: max abs err {err:.3e}; {probe['device_ms']:.4f} ms device, "
+        f"{probe['call_ms']:.4f} ms call, plain {probe['plain_ms']:.4f} ms "
+        f"call; bound {probe['bound_ms']:.4f} ms ({probe['bound_by']})")
+    return {"max_abs_err": worst, "rows": rows, "probe": probe}
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -928,15 +1052,18 @@ def train_phase():
     wall = time.perf_counter() - t0
     launches = dict(chain.LAUNCHES)
     episodes = sum(1 for i in range(1, 9) if i % 2 == 0)
-    want = episodes * state.actor.cfg.decoder_max_len
+    steps = state.actor.cfg.decoder_max_len
+    want = episodes * steps
     log(f"train: 8 iterations in {wall:.2f} s (host clock, data made on "
         f"the fly, validation and checkpoint included); launches "
-        f"{launches}, want chain = step_bwd = {want}")
+        f"{launches}, want step_bwd = {want}, chain = {want} + {steps} "
+        f"(one validation batch)")
     if state.step != 8:
         fail(f"the trainer stopped at step {state.step}, not 8")
-    if launches["step_bwd"] != want or launches["chain"] != want:
-        fail(f"launches {launches}: want {want} of each "
-             f"({episodes} episode iterations x {want // episodes} steps)")
+    if launches["step_bwd"] != want or launches["chain"] != want + steps:
+        fail(f"launches {launches}: want {want} step_bwd ({episodes} "
+             f"episode iterations x {steps} steps) and {want + steps} "
+             f"chain (and {steps} for the validation's rollout)")
     with open(os.path.join(TRAIN_RUN_DIR, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [(r["step"], k, r[k]) for r in recs for k in
@@ -1104,14 +1231,17 @@ def gier_train_phase():
     log(f"gier train: 8 iterations in {wall:.2f} s (host clock, JPEGs and "
         f"masks decoded on the fly, validation and checkpoint included); "
         f"launches {launches}, want chain_masked = step_bwd_masked = {want}"
-        f", chain = step_bwd = 0")
+        f", chain = {cfg.decoder_max_len} (one validation batch, no "
+        f"masks), step_bwd = 0")
     if state.step != 8:
         fail(f"the GIER trainer stopped at step {state.step}, not 8")
     if not (launches["chain_masked"] == launches["step_bwd_masked"] == want
-            and launches["chain"] == launches["step_bwd"] == 0):
+            and launches["chain"] == cfg.decoder_max_len
+            and launches["step_bwd"] == 0):
         fail(f"GIER launches {launches}: want {want} of each masked kernel "
-             f"(4 episode iterations x {cfg.decoder_max_len} steps) and "
-             f"no unmasked launch")
+             f"(4 episode iterations x {cfg.decoder_max_len} steps), "
+             f"{cfg.decoder_max_len} unmasked chains for the validation "
+             f"and no unmasked step backward")
     with open(os.path.join(GIER_RUN_DIR, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     losses = [(r["step"], k, r[k]) for r in recs for k in
@@ -1145,10 +1275,11 @@ def gier_train_phase():
     return state, launches
 
 
-def profiled_us(fn, calls=2):
+def profiled_us(fn, calls=2, count_of=None):
     """{name: µs per call} of the device operations (kernels, copies) of
     `calls` calls of fn (torch.profiler, after one warm-up call), plus
-    "all" (their sum) and "count" per call."""
+    "all" (their sum) and "count" per call; with `count_of`, also
+    "count_of": the operations per call whose name holds that text."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1157,7 +1288,7 @@ def profiled_us(fn, calls=2):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out, total, count = {}, 0.0, 0
+    out, total, count, named = {}, 0.0, 0, 0
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
         if t is None:
@@ -1166,7 +1297,11 @@ def profiled_us(fn, calls=2):
             out[e.key[:60]] = t / calls
             total += t / calls
             count += e.count / calls
+            if count_of is not None and count_of in e.key:
+                named += e.count / calls
     out["all"], out["count"] = total, count
+    if count_of is not None:
+        out["count_of"] = named
     return out
 
 
@@ -1354,11 +1489,197 @@ def gier_card_vs_cpu_phase():
     return lc
 
 
+# -- phase 12, 13 -------------------------------------------------------------
+FIVEK_GLOVE_NPY = os.path.join("data_real_h2h_acts",
+                               "FiveK_vocabs_glove_feat_1.npy")
+FIVEK_EVAL_ARGV = ["--device", "cuda", "--data_dir", "data_real_h2h",
+                   "--glove_path", FIVEK_GLOVE_NPY, "--visualize", "1",
+                   "--run_dir", os.path.join("output", "chip_smoke_eval")]
+GIER_EVAL_ARGV = ["--device", "cuda", "--data_dir", "data_real_gier",
+                  "--glove_path", GLOVE_NPY, "--visualize", "1",
+                  "--run_dir", os.path.join("output", "chip_smoke_gier_eval")]
+PROBE_IMAGES = 16          # test_variance's default
+CPU_PAIRS = 4
+CPU_PROBES = 2             # variance probe images rerun on the CPU
+EVAL_GAP = 1e-4
+VAR_RTOL = 1e-3            # the probe's variance, card against CPU
+STAGES = ("load_s", "rollout_s", "metrics_s", "gallery_s")
+
+
+def write_eval_checkpoint(cli, argv):
+    """The parsed flags, and a checkpoint_best.pt in their run dir of the
+    full-width actor the eval CLI builds from them (weights from
+    --manual_seed, GloVe rows from the .npy), its curve knots near 1 as
+    in the serving phase."""
+    a = cli.eval_parser().parse_args(argv)
+    shutil.rmtree(a.run_dir, ignore_errors=True)
+    _, vocab2id, _, w2v = common.build_dataset_and_vocab(a, "test")
+    actor, _ = common.build_actor(a, len(vocab2id), w2v)
+    with torch.no_grad():
+        actor.executor.color_op.fc2.bias += 1.0
+        actor.executor.tone_op.fc2.bias += 1.0
+    CheckpointManager(os.path.join(a.run_dir, a.ckpt_name)).save(
+        loop.TrainState(actor), 0, val_dist=0.0)
+    return a
+
+
+def eval_phase(name, cli, argv, n_items):
+    """`cli.main(argv)` on the card from a fresh checkpoint_best.pt, with
+    the launch counters read around it and each pair's and probe image's
+    record kept (programs, metrics, host-clock stages); then the first
+    CPU_PAIRS pairs' rollouts on the card under torch.profiler (B1's
+    device time per pair), and the first CPU_PAIRS pairs and CPU_PROBES
+    probe images again on the CPU from the same checkpoint."""
+    from t2onet_tpu_torch.cli import test_fivek
+    from t2onet_tpu_torch.evals.bucketing import pad_to_bucket
+    from t2onet_tpu_torch.train.checkpoint import restore_actor
+
+    a = write_eval_checkpoint(cli, argv)
+    steps = a.decoder_max_len
+    records, var_records = [], []
+    native, variance = test_fivek.test_native_res, test_fivek.test_variance
+
+    def keep_records(*args, **kw):
+        return native(*args, records=records, **kw)
+
+    def keep_var_records(*args, **kw):
+        return variance(*args, records=var_records, **kw)
+
+    for k in chain.LAUNCHES:
+        chain.LAUNCHES[k] = 0
+    test_fivek.test_native_res = keep_records
+    test_fivek.test_variance = keep_var_records
+    try:
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        test_fivek.test_native_res = native
+        test_fivek.test_variance = variance
+    launches = dict(chain.LAUNCHES)
+    n = len(records)
+    want = (n + PROBE_IMAGES) * steps
+    log(f"{name} eval: {n} pairs and the variance probe ({PROBE_IMAGES} "
+        f"images x 10 requests) in {wall:.2f} s (host clock, set-up "
+        f"included); metrics {res}; launches {launches}, want chain = "
+        f"({n} + {PROBE_IMAGES}) x {steps} = {want}")
+    if n != n_items or len(var_records) != PROBE_IMAGES:
+        fail(f"{name} eval rolled out {n} pairs, not {n_items}, and "
+             f"{len(var_records)} probe images, not {PROBE_IMAGES}")
+    if launches["chain"] != want or any(
+            v for k, v in launches.items() if k != "chain"):
+        fail(f"{name} eval launches {launches}: want chain = {want} (one per "
+             f"rollout step) and no other kernel")
+    if not all(math.isfinite(v) for v in res.values()):
+        fail(f"{name} eval metrics not finite: {res}")
+    web = os.path.join(a.run_dir, "test", "web")
+    gallery = sorted(os.listdir(os.path.join(web, "images")))
+    if not os.path.exists(os.path.join(web, "index.html")) or \
+            "00000_attn.png" not in gallery:
+        fail(f"{name} eval wrote no gallery: {gallery[:8]}")
+
+    per = {k: [r[k] * 1e3 for r in records] for k in STAGES}
+    pair_ms = [sum(r[k] for k in STAGES) * 1e3 for r in records]
+    native_s = sum(pair_ms) / 1e3
+    med = {k: statistics.median(v) for k, v in per.items()}
+    mean_rest = {k: statistics.mean(v[1:]) for k, v in per.items()}
+    log(f"  ms per pair (host clock; medians over {n} pairs, means over "
+        f"pairs 2-{n} in brackets): "
+        + ", ".join(f"{k[:-2]} {med[k]:.2f} ({mean_rest[k]:.2f})"
+                    for k in STAGES)
+        + f"; first pair {pair_ms[0]:.2f}; {n / native_s:.3f} pairs/s over "
+        f"the native loop ({native_s:.2f} s), the rest of the call "
+        f"(set-up, variance probe) {wall - native_s:.2f} s")
+    ds, vocab2id, id2op, w2v = common.build_dataset_and_vocab(a, "test")
+    actor, _ = common.build_actor(a, len(vocab2id), w2v)
+    restore_actor(actor, os.path.join(a.run_dir, a.ckpt_name), "best")
+    # the first pairs' rollouts on the card, their device operations
+    # profiled: B1's device time per pair as the eval runs it
+    batches = []
+    for i in range(CPU_PAIRS):
+        item = ds[i]
+        x, img = (item["request_idx"], item["input"]) \
+            if isinstance(item, dict) else (item[2], item[0])
+        batches.append({
+            "x": torch.from_numpy(np.asarray(x).astype(np.int32))[None]
+            .cuda(), "img_x": torch.from_numpy(pad_to_bucket(img)[0])[None]
+            .cuda()})
+    card = copy.deepcopy(actor).cuda().eval()
+    prof = profiled_us(lambda: [loop.eval_episode(card, b, fused_exec=True)
+                                for b in batches], calls=1,
+                       count_of="chain_kernel")
+    del card
+    top = sorted(((k, v) for k, v in prof.items()
+                  if k not in ("all", "count", "count_of")),
+                 key=lambda kv: -kv[1])
+    chain_us = sum(v for k, v in prof.items() if "chain_kernel" in k)
+    bound = statistics.mean(
+        sum(chain_bound(torch.tensor([[s]]), *b["img_x"].shape[2:], False)[0]
+            for s in chain.vocab_ops_to_slots(torch.tensor([r["ops"]]))[0]
+            .tolist())
+        for r, b in zip(records, batches))
+    b1 = {"launches": prof["count_of"] / CPU_PAIRS,
+          "device_ms": chain_us / 1e3 / CPU_PAIRS, "bound_ms": bound,
+          "bucket": "x".join(map(str, batches[0]["img_x"].shape[2:]))}
+    log(f"  the first {CPU_PAIRS} pairs' rollouts on the card, device "
+        f"(torch.profiler): {prof['all'] / 1e3 / CPU_PAIRS:.2f} ms of device "
+        f"operations and {prof['count'] / CPU_PAIRS:.0f} operations per "
+        f"pair; largest µs per {CPU_PAIRS} pairs "
+        f"{[(k, round(v, 1)) for k, v in top[:4]]}")
+    log(f"  B1 per pair at b1 {b1['bucket']} K1 (torch.profiler over those "
+        f"{CPU_PAIRS} pairs): {b1['launches']:.2f} launches, "
+        f"{b1['device_ms']:.4f} ms device, bound {bound:.4f} ms (the pairs' "
+        f"programs)")
+    if b1["launches"] != steps:
+        fail(f"{name} eval: the profiler saw {b1['launches']} chain kernels "
+             f"per pair, not {steps}")
+    # the first pairs and probe images on the CPU, from the same checkpoint
+    cpu, cpu_var = [], []
+    actor.eval()
+    t0 = time.perf_counter()
+    test_fivek.test_native_res(actor, [ds[i] for i in range(CPU_PAIRS)],
+                               a, id2op, fused_exec=True, records=cpu)
+    test_fivek.test_variance(actor, ds, a, vocab2id, n_images=CPU_PROBES,
+                             fused_exec=True, records=cpu_var)
+    cpu_s = time.perf_counter() - t0
+    keys = ("in_L1", "out_L1", "in_SSIM", "out_SSIM")
+    gap = max(abs(g[k] - c[k]) for g, c in zip(records, cpu) for k in keys)
+    same = [g["ops"] == c["ops"] for g, c in zip(records, cpu)]
+    same_var = [g["ops"] == c["ops"] for g, c in zip(var_records, cpu_var)]
+    var_gap = max(abs(g["variance"] - c["variance"])
+                  / max(abs(c["variance"]), 1e-30)
+                  for g, c in zip(var_records, cpu_var))
+    log(f"  card vs CPU, first {CPU_PAIRS} pairs and {CPU_PROBES} probe "
+        f"images (the CPU through the fused step's plain version, "
+        f"{cpu_s:.2f} s): same programs {same}, probe {same_var}; largest "
+        f"metric gap {gap:.3e} (bound {EVAL_GAP}); probe variances card "
+        f"{[g['variance'] for g in var_records[:CPU_PROBES]]}, CPU "
+        f"{[c['variance'] for c in cpu_var]}, largest relative gap "
+        f"{var_gap:.3e} (bound {VAR_RTOL}); programs "
+        f"{[c['ops'] for c in cpu]}")
+    if not all(same) or not gap <= EVAL_GAP:
+        fail(f"{name} eval: the card and the CPU disagree (programs {same}, "
+             f"metric gap {gap})")
+    if len(cpu_var) != CPU_PROBES or not all(same_var) or \
+            not var_gap <= VAR_RTOL:
+        fail(f"{name} eval: the card's variance probe disagrees with the "
+             f"CPU's (programs {same_var}, relative gap {var_gap})")
+    return {"pairs": n, "launches": launches["chain"], "wall_s": wall,
+            "metrics": res, "ms_per_pair_median": med,
+            "ms_per_pair_mean_after_first": mean_rest,
+            "first_pair_ms": pair_ms[0], "pairs_per_s": n / native_s,
+            "b1_per_pair": b1, "cpu_gap": gap, "cpu_var_rel_gap": var_gap,
+            "rollout_device_ms": prof["all"] / 1e3 / CPU_PAIRS,
+            "rollout_device_ops": prof["count"] / CPU_PAIRS}
+
+
 def main():
     smi = device_phase()
     build_phase()
     host_packages_phase()
     k = kernel_phase()
+    ek = eval_chain_phase()
     sb = step_kernel_phase()
     mc = masked_chain_phase()
     ms = masked_step_phase()
@@ -1372,31 +1693,44 @@ def main():
     gstate, gier_launches = gier_train_phase()
     gt = gier_timing_phase(gstate)
     gier_card_vs_cpu_phase()
+    del gstate
+    from t2onet_tpu_torch.cli import test_fivek, test_gier
+
+    fe = eval_phase("FiveK", test_fivek, FIVEK_EVAL_ARGV, 50)
+    ge = eval_phase("GIER", test_gier, GIER_EVAL_ARGV, 57)
     chain_by_path = {"serve": serve_launches,
                      "train": train_launches["chain"],
-                     "gier_train": gier_launches["chain"]}
+                     "gier_train": gier_launches["chain"],
+                     "fivek_eval": fe["launches"],
+                     "gier_eval": ge["launches"]}
     step_by_path = {"serve": 0, "train": train_launches["step_bwd"],
-                    "gier_train": gier_launches["step_bwd"]}
+                    "gier_train": gier_launches["step_bwd"],
+                    "fivek_eval": 0, "gier_eval": 0}
     kernels = {"kernels": [{
         "name": "chain", "route": "cuda",
         "source": "t2onet_tpu_torch/csrc/chain.cu",
         "replaces": "t2onet_tpu/ops/pallas_fused.py:270",
         "launches": sum(chain_by_path.values()),
         "launches_by_path": chain_by_path,
-        "max_abs_err": k["max_abs_err"],
+        "max_abs_err": max(k["max_abs_err"], ek["max_abs_err"]),
         "ms": k["ms"], "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None, "device_ms": k["device_ms"],
         "device_ms_b8_512_serve": k["device_ms_b8_512_serve"],
         "bound_ms_b8_512_serve": k["bound_ms_b8_512_serve"],
         "device_ms_b64_128_k1": k["device_ms_b64_128_k1"],
-        "bound_ms_b64_128_k1": k["bound_ms_b64_128_k1"]}, {
+        "bound_ms_b64_128_k1": k["bound_ms_b64_128_k1"],
+        "eval_b1_k1_slots": ek["rows"],
+        "eval_b10_600_k1_probe": ek["probe"],
+        "eval_b1_640_k1_per_fivek_pair": fe["b1_per_pair"],
+        "eval_b1_640_k1_per_gier_pair": ge["b1_per_pair"]}, {
         "name": "chain_masked", "route": "cuda",
         "source": "t2onet_tpu_torch/csrc/chain.cu",
         "replaces": "t2onet_tpu/ops/pallas_fused.py:286",
         "launches": gier_launches["chain_masked"],
         "launches_by_path": {"serve": 0, "train": 0,
-                             "gier_train": gier_launches["chain_masked"]},
+                             "gier_train": gier_launches["chain_masked"],
+                             "fivek_eval": 0, "gier_eval": 0},
         "max_abs_err": mc["max_abs_err"],
         "ms": mc["ms"], "kernel_ms": mc["ms"], "plain_ms": mc["plain_ms"],
         "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
@@ -1426,7 +1760,8 @@ def main():
         "replaces": "t2onet_tpu/ops/pallas_fused.py:409",
         "launches": gier_launches["step_bwd_masked"],
         "launches_by_path": {"serve": 0, "train": 0,
-                             "gier_train": gier_launches["step_bwd_masked"]},
+                             "gier_train": gier_launches["step_bwd_masked"],
+                             "fivek_eval": 0, "gier_eval": 0},
         "max_abs_err": ms["max_abs_err"],
         "d_params_rel_err": ms["param_rel_err"],
         "ms": ms["ms"], "kernel_ms": ms["ms"], "plain_ms": ms["plain_ms"],
@@ -1438,7 +1773,7 @@ def main():
         "device_ms": ms["device_ms"],
         "device_ms_b128_512": ms["device_ms_b128_512"]}],
         "step_bwd_slots_b64_128": slots, "chain_slots": chain_slots,
-        "train": t, "gier_train": gt}
+        "train": t, "gier_train": gt, "fivek_eval": fe, "gier_eval": ge}
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
-"""Shared CLI plumbing: flags -> Config, datasets, actor construction,
-scalar logging (counterpart of the trainers' parts of
-`t2onet_tpu.cli.common`). The flags are the JAX CLI's, with its defaults,
-`--device` in place of `--cpu`, and `--glove_path` for hosts without
-h5py; the unported model modes (discrete params, bf16 ResNet) come with
-the code that reads them."""
+"""Shared CLI plumbing: flags -> Config, the device and its precision,
+datasets, actor construction, scalar logging (counterpart of the
+trainers' and evals' parts of `t2onet_tpu.cli.common`). The flags are
+the JAX CLI's, with its defaults, `--device` in place of `--cpu`, and
+`--glove_path` for hosts without h5py; the unported model modes
+(discrete params, bf16 ResNet) come with the code that reads them."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 
 from t2onet_tpu_torch.config import (Config, ModelConfig, OperatorConfig,
                                      TrainConfig)
+from t2onet_tpu_torch.precision import set_cuda_precision
 
 
 def add_base_args(p: argparse.ArgumentParser):
@@ -72,12 +73,24 @@ def add_base_args(p: argparse.ArgumentParser):
 def resolve_device(name: str) -> torch.device:
     """`--device` as a torch.device. An entry point runs on the card
     unless its caller asks for the CPU: asking for CUDA where PyTorch finds
-    no card raises, rather than carry on on the CPU."""
+    no card raises, rather than carry on on the CPU. A CUDA device also
+    turns TF32 off (`set_cuda_precision`)."""
     device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: PyTorch finds no CUDA card "
-                           f"here; pass --device cpu to run on the CPU")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--device {name}: PyTorch finds no CUDA "
+                               f"card here; pass --device cpu to run on the "
+                               f"CPU")
+        set_cuda_precision()
     return device
+
+
+def resolve_fused_exec(flag: int, device: torch.device) -> bool:
+    """`--fused_exec`: 1 executes each rollout step through the fused step
+    (the chain kernel on a CUDA tensor, its plain version on the CPU), 0
+    through the one-hot bank, -1 (the default) the kernels on a CUDA
+    device and the bank on the CPU."""
+    return device.type == "cuda" if flag == -1 else bool(flag)
 
 
 def add_train_args(p: argparse.ArgumentParser):
@@ -112,31 +125,48 @@ def args_to_config(a) -> Config:
     ops = OperatorConfig(
         exposure_range=a.exposure_range, sharpness_range=a.sharpness_range,
         brightness_range=a.brightness_range, curve_steps=a.curve_steps)
-    train = TrainConfig(
-        batch_size=a.batch_size, num_iters=a.num_iters,
-        learning_rate=a.learning_rate, explore_prob=a.explore_prob,
-        print_every=a.print_every, checkpoint_every=a.checkpoint_every,
+    # an eval CLI has no training flags: TrainConfig's defaults stand
+    train = TrainConfig(**{k: getattr(a, k) for k in (
+        "batch_size", "num_iters", "learning_rate", "explore_prob",
+        "print_every", "checkpoint_every") if hasattr(a, k)},
         train_img_size=a.img_size, seed=a.manual_seed)
     return Config(operators=ops, model=model, train=train,
                   dataset=a.dataset, session=a.session)
 
 
-def resolve_run_dir(a) -> str:
+def resolve_run_dir(a, record: bool = True) -> str:
     """The run directory (default output/{dataset}_trial_{trial}), made if
-    missing; the flags that produced it go to its opt.json."""
+    missing. With `record` the flags go to its opt.json; a read-only CLI
+    (eval) passes record=False, so that the opt.json stays the record of
+    the flags that trained the run's checkpoints."""
     run_dir = a.run_dir or f"output/{a.dataset}_trial_{a.trial}"
     os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "opt.json"), "w") as f:
-        json.dump(vars(a), f, indent=2, default=str)
+    if record:
+        with open(os.path.join(run_dir, "opt.json"), "w") as f:
+            json.dump(vars(a), f, indent=2, default=str)
     return run_dir
 
 
-def build_dataset_and_vocab(a, phase: str = "train", wire_u8: bool = False):
-    """(dataset, vocab2id, GloVe matrix or None). The synthetic set, or
-    GIER from {data_dir}/GIER and {data_dir}/language: the train split
-    with the planner's actions (`GIERDatasetAct`, uint8 images with
-    wire_u8), val/test without, at the train size. FiveK's files wait
-    for their planner actions."""
+# the synthetic set's op names by vocab id (t2onet_tpu.cli.common's)
+SYNTHETIC_ID2OP = dict(enumerate(
+    ["<NONE>", "<START>", "<END>", "brightness", "contrast", "saturation",
+     "hue", "inpaint_obj", "tint", "sharpness", "color_bg"]))
+
+
+def build_dataset_and_vocab(a, phase: str = "train",
+                            eval_img_mode: str = "native",
+                            wire_u8: bool = False):
+    """(dataset, vocab2id, id2op, GloVe matrix or None), as the JAX CLI's.
+
+    The synthetic set; or from {data_dir}/{dataset} and
+    {data_dir}/language: GIER's train split with the planner's actions
+    (`GIERDatasetAct`, uint8 images with wire_u8) and its val/test
+    without (`GIERDataset`); FiveK's val/test pairs (`FiveK`). FiveK's
+    train split needs the planner's action files, which the repo does
+    not have yet. eval_img_mode (val/test): 'native' loads short-side-600
+    images at their own shapes (batch 1), 'train_size' square images at
+    --img_size that batch. The GloVe rows come from --glove_path, else
+    from the .h5 beside the vocabularies when it exists."""
     if a.synthetic:
         from t2onet_tpu_torch.data.synthetic import (SyntheticFiveK,
                                                      synthetic_vocab)
@@ -146,34 +176,45 @@ def build_dataset_and_vocab(a, phase: str = "train", wire_u8: bool = False):
         ds = SyntheticFiveK(n=n, img_size=a.img_size, seed=seed,
                             req_max_len=a.encoder_max_len,
                             op_max_len=a.decoder_max_len)
-        return ds, synthetic_vocab(), None
-    if a.dataset != "GIER":
-        raise NotImplementedError(
-            "FiveK's image files need the planner's action files "
-            "(output/actions_set_N), which the repo does not have yet: "
-            "use --synthetic or --dataset GIER")
-    from t2onet_tpu_torch.data.gier import GIERDataset, GIERDatasetAct
+        return ds, synthetic_vocab(), dict(SYNTHETIC_ID2OP), None
     from t2onet_tpu_torch.data.text import load_embedding, load_vocab
 
     vocab_dir = os.path.join(a.data_dir, "language")
-    vocab2id = load_vocab(vocab_dir, a.dataset, a.session)[0]
-    gier_dir = os.path.join(a.data_dir, "GIER")
-    data_mode = getattr(a, "data_mode", "global")
-    if phase == "train":
-        act_dir = a.act_dir or f"output/GIER_actions_set_{a.action_id}"
-        ds = GIERDatasetAct(
-            gier_dir, vocab_dir, act_dir, phase, data_mode=data_mode,
-            is_load_mask=bool(getattr(a, "is_load_mask", 0)),
-            session=a.session, train_img_size=a.img_size,
-            wire_dtype=np.uint8 if wire_u8 else np.float32)
+    vocab2id, _, _, id2op = load_vocab(vocab_dir, a.dataset, a.session)
+    wire = np.uint8 if wire_u8 else np.float32
+    if a.dataset == "GIER":
+        from t2onet_tpu_torch.data.gier import GIERDataset, GIERDatasetAct
+
+        gier_dir = os.path.join(a.data_dir, "GIER")
+        data_mode = getattr(a, "data_mode", "global")
+        if phase == "train":
+            act_dir = a.act_dir or f"output/GIER_actions_set_{a.action_id}"
+            ds = GIERDatasetAct(
+                gier_dir, vocab_dir, act_dir, phase, data_mode=data_mode,
+                is_load_mask=bool(getattr(a, "is_load_mask", 0)),
+                session=a.session, train_img_size=a.img_size,
+                wire_dtype=wire)
+        else:
+            # planner actions exist for the train split only
+            ds = GIERDataset(gier_dir, vocab_dir, phase, data_mode=data_mode,
+                             session=a.session, train_img_size=a.img_size,
+                             eval_img_mode=eval_img_mode)
     else:
-        # planner actions exist for the train split only
-        ds = GIERDataset(gier_dir, vocab_dir, phase, data_mode=data_mode,
-                         session=a.session, train_img_size=a.img_size)
+        if phase == "train":
+            raise NotImplementedError(
+                "FiveK's train split needs the planner's action files "
+                "(FiveKAct, ROADMAP A2), which the repo does not have yet: "
+                "use --synthetic or --dataset GIER to train")
+        from t2onet_tpu_torch.data.fivek import FiveK
+
+        ds = FiveK(os.path.join(a.data_dir, "FiveK", "images"),
+                   os.path.join(a.data_dir, "FiveK", "annotations"), phase,
+                   a.session, a.img_size, eval_img_mode=eval_img_mode,
+                   wire_dtype=wire)
     glove = a.glove_path or os.path.join(
         vocab_dir, f"{a.dataset}_vocabs_glove_feat_{a.session}.h5")
     w2v = load_embedding(glove) if os.path.exists(glove) else None
-    return ds, vocab2id, w2v
+    return ds, vocab2id, id2op, w2v
 
 
 def build_actor(a, vocab_size: int, word2vec=None):
@@ -196,7 +237,7 @@ def build_actor(a, vocab_size: int, word2vec=None):
                                            fix_input_embedding=False))
     actor = Actor(cfg.model, cfg.operators, vocab_size,
                   generator=torch.Generator().manual_seed(a.manual_seed),
-                  explore_prob=a.explore_prob, word2vec=word2vec)
+                  explore_prob=cfg.train.explore_prob, word2vec=word2vec)
     return actor, cfg
 
 

@@ -5,10 +5,11 @@ Odd iterations are teacher-forced (op NLL + param MSE), even ones a
 sampled free rollout with L1 to the ground truth; one Adam over
 everything; periodic validation and best-checkpoint tracking. On a CUDA
 device the episode phase executes each rollout step through the fused
-step kernels (`--fused_exec`, on by default there). With GIER's
-local-edit masks (`cli/train_gier.py --is_load_mask 1`) the episode
-phase blends each step through the mask of its predicted op, and the
-fused step runs the masked kernels.
+step kernels (`--fused_exec`, on by default there), and so does the
+validation's greedy rollout. With GIER's local-edit masks
+(`cli/train_gier.py --is_load_mask 1`) the episode phase blends each
+step through the mask of its predicted op, and the fused step runs the
+masked kernels.
 
 Usage (synthetic, no image files needed):
   python -m t2onet_tpu_torch.cli.train_fivek --synthetic --num_iters 200 \\
@@ -35,12 +36,15 @@ from t2onet_tpu_torch.train.loop import (TrainState, episode_step,
                                          eval_episode, supervised_step)
 
 
-def evaluate(actor, val_ds, batch_size: int, n_batches: int, device) -> float:
+def evaluate(actor, val_ds, batch_size: int, n_batches: int, device,
+             fused_exec: bool = False) -> float:
+    """Mean L1 of greedy rollouts over `n_batches` validation batches;
+    `fused_exec` executes each step as the episode phase does."""
     dists, init_dists = [], []
     for batch in val_ds.batches(batch_size, n_batches, shuffle=False):
         b = device_put_batch({"x": batch["x"], "img_x": batch["img_x"],
                               "gt": batch["img_y"][:, -1]}, device)
-        pred, _ = eval_episode(actor, b)
+        pred, _ = eval_episode(actor, b, fused_exec=fused_exec)
         dists.append(float((pred - b["gt"]).abs().mean()))
         init_dists.append(float((b["img_x"] - b["gt"]).abs().mean()))
     print(f"validation init L1 {np.mean(init_dists):.4f}  "
@@ -70,9 +74,11 @@ def main(argv=None, parser=None):
     device = common.resolve_device(a.device)
     run_dir = common.resolve_run_dir(a)
 
-    train_ds, vocab2id, w2v = common.build_dataset_and_vocab(
+    train_ds, vocab2id, _, w2v = common.build_dataset_and_vocab(
         a, "train", wire_u8=bool(a.wire_u8))
-    val_ds = common.build_dataset_and_vocab(a, "val")[0]
+    # square validation images at the train size, so that they batch
+    val_ds = common.build_dataset_and_vocab(a, "val",
+                                            eval_img_mode="train_size")[0]
     actor, _ = common.build_actor(a, len(vocab2id), w2v)
     state = TrainState(actor.to(device), learning_rate=a.learning_rate)
     n_params = sum(x.numel() for x in actor.parameters())
@@ -99,8 +105,7 @@ def main(argv=None, parser=None):
     if getattr(a, "is_load_mask", 0) and not use_masks:
         print("warning: --is_load_mask set but the dataset emits no masks: "
               "training global-only")
-    fused = (device.type == "cuda" if a.fused_exec == -1
-             else bool(a.fused_exec))
+    fused = common.resolve_fused_exec(a.fused_exec, device)
     print(f"episode executor: "
           f"{'fused step kernels' if fused else 'one-hot bank'}")
 
@@ -156,7 +161,7 @@ def main(argv=None, parser=None):
             if itr % a.checkpoint_every == 0 or itr >= a.num_iters:
                 if a.val_batches > 0:
                     val = evaluate(actor, val_ds, min(a.batch_size, 16),
-                                   a.val_batches, device)
+                                   a.val_batches, device, fused_exec=fused)
                     best = ckpt.save(state, itr, val, generator=gen)
                     logger.log(itr, val_L1=val)
                     if best:

@@ -1,18 +1,25 @@
-"""The parts of the FiveK readers that the GIER datasets use (counterpart
-of `t2onet_tpu.data.fivek`): the square training image, the planner
-trajectory's truncation and the planner JSON -> (ops, params) parse.
+"""FiveK readers (counterpart of `t2onet_tpu.data.fivek`): the square
+training image and the short-side-600 eval image, the planner
+trajectory's truncation, the planner JSON -> (ops, params) parse, and the
+image-pair dataset of the val and test splits. The train split's dataset
+with the planner's actions (`FiveKAct`) waits for FiveK's action files.
 
 Images are read as the reference reads them: cv2 (imported where it is
-used), BGR -> RGB, CHW, resized to a square with cv2's default bilinear
-resize on uint8, then /255 unless the uint8 wire is asked for.
+used), BGR -> RGB, CHW, resized with cv2's default bilinear resize on
+uint8, then /255 (training images stay uint8 when the uint8 wire is
+asked for).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, List
 
 import numpy as np
 
+from t2onet_tpu_torch.data.iteration import (epoch_index_batches,
+                                             sequential_index_batches)
 from t2onet_tpu_torch.data.text import END_ID, START_ID
 from t2onet_tpu_torch.ops.bank import MAX_PARAM, VOCAB_OFFSET
 from t2onet_tpu_torch.ops.operators import OP_NAMES
@@ -36,6 +43,22 @@ def load_train_img(path: str, img_size: int, dtype=np.float32) -> np.ndarray:
     if np.dtype(dtype) == np.uint8:
         return np.ascontiguousarray(img)
     return np.ascontiguousarray(img).astype(np.float32) / 255.0
+
+
+def load_infer_img_short_size_bounded(path: str, short_size: int = 600
+                                      ) -> np.ndarray:
+    """(3, h, w) f32 RGB in [0, 1], resized so that its short side is
+    `short_size` (reference visual_utils.py:34-47)."""
+    import cv2
+
+    img = cv2.imread(path)
+    if img is None:
+        raise FileNotFoundError(f"cannot read image {path}")
+    h, w, _ = img.shape
+    ratio = short_size / min(h, w)
+    img = cv2.resize(img, (int(np.round(w * ratio)), int(np.round(h * ratio))))
+    img = img[:, :, ::-1].astype(np.float32)
+    return img.transpose(2, 0, 1) / 255.0
 
 
 def analyze_traj(dists: List[float]) -> int:
@@ -72,3 +95,69 @@ def parse_action_json(act: Dict, op_max_len: int, truncate: bool = True):
     op_seq[0] = START_ID
     op_seq[i + 2] = END_ID
     return op_seq, params, len(seq)
+
+
+class FiveK:
+    """Image pairs and requests of one split (reference
+    FiveKdataset.py:24-51); items are (input, output, request ids,
+    request).
+
+    eval_img_mode: 'native' loads val and test images short-side-600 at
+    their own aspect ratio (the reference's batch-1 eval protocol), so
+    that `batches` then needs batch size 1 unless every image has one
+    shape; 'train_size' loads them square at train_img_size, so that
+    in-training validation batches. The train split always loads at
+    train_img_size. wire_dtype=np.uint8 keeps fixed-size images 8-bit
+    (divided by 255 on the device); native images are f32 always.
+    Every item is decoded anew from its JPEGs.
+    """
+
+    def __init__(self, img_dir: str, anno_dir: str, phase: str,
+                 session: int = 1, train_img_size: int = 128,
+                 req_max_len: int = 15, eval_img_mode: str = "native",
+                 wire_dtype=np.float32):
+        self.img_dir = img_dir
+        self.phase = phase
+        self.train_img_size = train_img_size
+        self.req_max_len = req_max_len
+        self.eval_img_mode = eval_img_mode
+        self.wire_dtype = np.dtype(wire_dtype)
+        with open(os.path.join(anno_dir, f"{phase}_sess_{session}.json")) as f:
+            self.data = json.load(f)
+
+    def __len__(self):
+        return len(self.data)
+
+    def _fixed_size(self) -> bool:
+        return self.phase == "train" or self.eval_img_mode == "train_size"
+
+    def _load(self, name: str) -> np.ndarray:
+        path = os.path.join(self.img_dir, name)
+        if self._fixed_size():
+            return load_train_img(path, self.train_img_size, self.wire_dtype)
+        return load_infer_img_short_size_bounded(path, 600)
+
+    def __getitem__(self, item: int):
+        d = self.data[item]
+        return (self._load(d["input"]), self._load(d["output"]),
+                np.asarray(d["request_idx"], np.int64), d["request"])
+
+    def batches(self, batch_size: int, steps: int, shuffle: bool = True,
+                seed: int = 0, sequential: bool = False):
+        """Eval batches: img_x, img_y with one step axis (img_y[:, -1] is
+        the ground truth), x int32 and the request strings.
+        sequential=True covers every item once, with a short tail batch
+        (steps and shuffle ignored)."""
+        if sequential:
+            sels = sequential_index_batches(len(self), batch_size)
+        else:
+            sels = epoch_index_batches(len(self), batch_size, steps, shuffle,
+                                       np.random.default_rng(seed))
+        for sel in sels:
+            items = [self[int(j)] for j in sel]
+            yield {
+                "img_x": np.stack([it[0] for it in items]),
+                "img_y": np.stack([it[1] for it in items])[:, None],
+                "x": np.stack([it[2] for it in items]).astype(np.int32),
+                "req": [it[3] for it in items],
+            }

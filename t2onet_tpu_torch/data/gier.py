@@ -19,7 +19,8 @@ from typing import Dict, List
 
 import numpy as np
 
-from t2onet_tpu_torch.data.fivek import load_train_img, parse_action_json
+from t2onet_tpu_torch.data.fivek import (load_infer_img_short_size_bounded,
+                                         load_train_img, parse_action_json)
 from t2onet_tpu_torch.data.iteration import (epoch_index_batches,
                                              sequential_index_batches)
 from t2onet_tpu_torch.data.rle import resize_nearest, rle_decode
@@ -40,12 +41,13 @@ class GIER:
     def __init__(self, data_dir: str, vocab_dir: str, phase: str,
                  data_mode: str = "global", is_load_mask: bool = False,
                  session: int = 3, train_img_size: int = 128,
-                 eval_img_mode: str = "train_size", wire_dtype=np.float32):
-        if phase != "train" and eval_img_mode != "train_size":
-            raise NotImplementedError(
-                "only train-size images are ported; native-resolution eval "
-                "images come with cli/test_gier")
+                 eval_img_mode: str = "native", wire_dtype=np.float32):
+        """eval_img_mode (val and test): 'native' loads each input
+        short-side-600 at its own aspect ratio and its output at the
+        input's size; 'train_size' loads both square at train_img_size.
+        The train split always loads at train_img_size."""
         self.op_max_len = 10
+        self.eval_img_mode = eval_img_mode
         self.req_max_len = 15
         self.wire_dtype = np.dtype(wire_dtype)   # uint8 images; masks f32
         self.session = session
@@ -144,16 +146,30 @@ class GIER:
         is_local += [0] * (self.op_max_len - len(is_local))
         return op_idx, is_local, mask_dict
 
-    def _load_img(self, name: str):
-        return load_train_img(os.path.join(self.img_dir, name),
-                              self.train_img_size, self.wire_dtype)
+    def _load_img(self, name: str, like_hw=None):
+        """A training-size image, or for native eval the input
+        short-side-600 and, with `like_hw`, the output resized to the
+        input's (h, w)."""
+        path = os.path.join(self.img_dir, name)
+        if self.phase == "train" or self.eval_img_mode == "train_size":
+            return load_train_img(path, self.train_img_size, self.wire_dtype)
+        if like_hw is None:
+            return load_infer_img_short_size_bounded(path)
+        import cv2
+
+        img = cv2.imread(path)
+        if img is None:
+            raise FileNotFoundError(f"cannot read image {path}")
+        img = cv2.resize(img, (like_hw[1], like_hw[0]))
+        return img[:, :, ::-1].astype(np.float32).transpose(2, 0, 1) / 255.0
 
     def get_req_item(self, req_id: int) -> Dict:
         pair_id = self.ReqId2PairId[req_id]
         d = self.op_data[pair_id]
         op_idx, is_local, mask_dict = self.get_op_info(pair_id)
-        out = {"input": self._load_img(d["input"]),
-               "output": self._load_img(d["output"]),
+        input_img = self._load_img(d["input"])
+        out = {"input": input_img,
+               "output": self._load_img(d["output"], input_img.shape[1:]),
                "is_local": is_local, "op_idx": op_idx,
                "request": self.getReq[req_id],
                "request_idx": self.getReqIdx[req_id].tolist()}
@@ -186,7 +202,7 @@ class GIERDataset:
 
     def __init__(self, data_dir, vocab_dir, phase, data_mode="global",
                  is_load_mask=False, session=3, train_img_size=128,
-                 eval_img_mode="train_size", wire_dtype=np.float32):
+                 eval_img_mode="native", wire_dtype=np.float32):
         self.op_max_len = 8
         self.is_load_mask = is_load_mask
         self.GIER = GIER(data_dir, vocab_dir, phase, data_mode,

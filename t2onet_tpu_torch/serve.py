@@ -30,6 +30,7 @@ from t2onet_tpu_torch.data.text import txt2idx
 from t2onet_tpu_torch.evals.bucketing import bucket_shape, pad_to_bucket
 from t2onet_tpu_torch.ops.chain import fused_chain, vocab_ops_to_slots
 from t2onet_tpu_torch.ops.operators import OP_NAMES
+from t2onet_tpu_torch.precision import set_cuda_precision
 
 END_ID = 2
 MAX_PARAM = 24
@@ -64,8 +65,8 @@ class ServingEngine:
 
     :param actor: `models.actor.Actor`; moved to `device` and set to eval.
     :param vocab2id: request token vocabulary.
-    :param device: where decode and execute run ("cuda" needs a card;
-        there is no fallback to the CPU).
+    :param device: where decode and execute run ("cuda" needs a card,
+        and turns TF32 off; there is no fallback to the CPU).
     :param decode_size: probe resolution of the decode stage.
     :param quantum, max_side: shape buckets (see evals.bucketing).
     :param max_batch: requests per micro-batch.
@@ -76,9 +77,11 @@ class ServingEngine:
                  max_side: int = 1024, max_batch: int = 8,
                  encoder_max_len: int = 17, u8_wire: bool = True):
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("ServingEngine(device='cuda') but no CUDA "
-                               "device is available")
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("ServingEngine(device='cuda') but no CUDA "
+                                   "device is available")
+            set_cuda_precision()
         self.actor = actor.to(self.device).eval()
         self.vocab2id = vocab2id
         self.decode_size = decode_size

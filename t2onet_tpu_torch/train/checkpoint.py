@@ -7,6 +7,7 @@ Each checkpoint holds the whole training state: the actor's state_dict
 optionally the state of the episode generator, so a resume continues
 exactly. Layout under `ckpt_dir`: `checkpoint_iter{itr:08d}.pt`,
 `checkpoint_best.pt` and `stats.json` (val L1 per checkpoint, best iter).
+An eval reads the actor's part alone (`restore_actor`).
 """
 
 from __future__ import annotations
@@ -38,6 +39,16 @@ def _resolve_ckpt_path(ckpt_dir: str, which: str) -> str:
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
         return os.path.join(ckpt_dir, cands[-1])
     return which
+
+
+def restore_actor(actor, ckpt_dir: str, which: str = "best") -> str:
+    """Load only the actor's weights and BatchNorm statistics from a
+    checkpoint ('best', 'latest' or a path) into `actor`, in place, for
+    eval: no optimizer state is read. Returns the file read."""
+    path = _resolve_ckpt_path(ckpt_dir, which)
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    actor.load_state_dict(blob["model"])
+    return path
 
 
 def _save(obj, path: str):

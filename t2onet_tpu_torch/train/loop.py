@@ -100,8 +100,11 @@ def episode_step(state: TrainState, batch, generator=None, sample=True,
 
 
 @torch.no_grad()
-def eval_episode(actor: Actor, batch):
-    """Greedy eval-mode rollout: (each sample's <END> image, rollout)."""
+def eval_episode(actor: Actor, batch, fused_exec: bool = False):
+    """Greedy eval-mode rollout: (each sample's <END> image, rollout).
+    Each step executes through the bank, or with `fused_exec` through
+    `ops.step.fused_step`, whose forward is the chain kernel at K=1 on a
+    CUDA tensor."""
     actor.eval()
-    out = actor.episode(batch["x"], batch["img_x"])
+    out = actor.episode(batch["x"], batch["img_x"], fused_exec=fused_exec)
     return select_end_images(out["imgs"], out["ops"]), out

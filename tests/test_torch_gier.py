@@ -148,7 +148,8 @@ def test_gier_dataset_act_batches_match_jax(wire):
 def test_gier_eval_batches_match_jax():
     """Validation items at the train size, sequential with a short tail."""
     port = gier.GIERDataset(GIER_DIR, VOCAB_DIR, "val",
-                            data_mode="shapeAlign", train_img_size=16)
+                            data_mode="shapeAlign", train_img_size=16,
+                            eval_img_mode="train_size")
     ref = jgier.GIERDataset(GIER_DIR, VOCAB_DIR, "val",
                             data_mode="shapeAlign", train_img_size=16,
                             eval_img_mode="train_size")
