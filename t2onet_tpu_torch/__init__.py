@@ -11,6 +11,8 @@ the reference; tests hold this package to it.
 - `serve`   — the serving engine: tokenize, decode at a probe
               resolution, execute the program at native resolution.
 - `convert` — carries a JAX actor's variables into the port's modules.
+- `planner` — the offline beam-search planner that writes the action
+              files the trainers learn from.
 
 Importing the package loads no kernel and starts nothing: kernels are
 built at their first launch on a CUDA tensor.

@@ -159,11 +159,11 @@ def build_dataset_and_vocab(a, phase: str = "train",
     """(dataset, vocab2id, id2op, GloVe matrix or None), as the JAX CLI's.
 
     The synthetic set; or from {data_dir}/{dataset} and
-    {data_dir}/language: GIER's train split with the planner's actions
-    (`GIERDatasetAct`, uint8 images with wire_u8) and its val/test
-    without (`GIERDataset`); FiveK's val/test pairs (`FiveK`). FiveK's
-    train split needs the planner's action files, which the repo does
-    not have yet. eval_img_mode (val/test): 'native' loads short-side-600
+    {data_dir}/language: the train split with the planner's actions
+    (`GIERDatasetAct`, `FiveKAct`; uint8 images with wire_u8) from
+    --act_dir (default output/GIER_actions_set_N,
+    output/actions_set_N), val/test without (`GIERDataset`, `FiveK`).
+    eval_img_mode (val/test): 'native' loads short-side-600
     images at their own shapes (batch 1), 'train_size' square images at
     --img_size that batch. The GloVe rows come from --glove_path, else
     from the .h5 beside the vocabularies when it exists."""
@@ -200,17 +200,19 @@ def build_dataset_and_vocab(a, phase: str = "train",
                              session=a.session, train_img_size=a.img_size,
                              eval_img_mode=eval_img_mode)
     else:
-        if phase == "train":
-            raise NotImplementedError(
-                "FiveK's train split needs the planner's action files "
-                "(FiveKAct, ROADMAP A2), which the repo does not have yet: "
-                "use --synthetic or --dataset GIER to train")
-        from t2onet_tpu_torch.data.fivek import FiveK
+        from t2onet_tpu_torch.data.fivek import FiveK, FiveKAct
 
-        ds = FiveK(os.path.join(a.data_dir, "FiveK", "images"),
-                   os.path.join(a.data_dir, "FiveK", "annotations"), phase,
-                   a.session, a.img_size, eval_img_mode=eval_img_mode,
-                   wire_dtype=wire)
+        img_dir = os.path.join(a.data_dir, "FiveK", "images")
+        anno_dir = os.path.join(a.data_dir, "FiveK", "annotations")
+        if phase == "train":
+            # planner actions exist for the train split only
+            act_dir = a.act_dir or f"output/actions_set_{a.action_id}"
+            ds = FiveKAct(img_dir, anno_dir, act_dir, phase, a.session,
+                          a.img_size, op_max_len=a.decoder_max_len,
+                          wire_dtype=wire)
+        else:
+            ds = FiveK(img_dir, anno_dir, phase, a.session, a.img_size,
+                       eval_img_mode=eval_img_mode, wire_dtype=wire)
     glove = a.glove_path or os.path.join(
         vocab_dir, f"{a.dataset}_vocabs_glove_feat_{a.session}.h5")
     w2v = load_embedding(glove) if os.path.exists(glove) else None

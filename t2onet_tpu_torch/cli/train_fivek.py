@@ -11,9 +11,16 @@ validation's greedy rollout. With GIER's local-edit masks
 step through the mask of its predicted op, and the fused step runs the
 masked kernels.
 
-Usage (synthetic, no image files needed):
+Usage (synthetic, no image files needed; then the real FiveK pairs with
+the planner's actions):
   python -m t2onet_tpu_torch.cli.train_fivek --synthetic --num_iters 200 \\
       --batch_size 16 --img_size 64
+  python -m t2onet_tpu_torch.cli.train_fivek --data_dir data_real_h2h \\
+      --act_dir data_real_h2h_acts/actions_set_1 \\
+      --glove_path data_real_h2h_acts/FiveK_vocabs_glove_feat_1.npy
+
+`--fs_only` trains the supervised phase alone (`cli/train_actor_fs.py`),
+and `--profile_steps N` traces N steps with torch.profiler.
 
 It runs on the card (`--device cuda`, the default) and raises where
 PyTorch finds none; `--device cpu` runs it on the CPU.
@@ -34,6 +41,7 @@ from t2onet_tpu_torch.data.loader import Prefetcher, device_put_batch
 from t2onet_tpu_torch.train.checkpoint import CheckpointManager
 from t2onet_tpu_torch.train.loop import (TrainState, episode_step,
                                          eval_episode, supervised_step)
+from t2onet_tpu_torch.utils import profiling
 
 
 def evaluate(actor, val_ds, batch_size: int, n_batches: int, device,
@@ -64,6 +72,12 @@ def train_parser() -> argparse.ArgumentParser:
     p.add_argument("--wire_u8", type=int, default=1, choices=(0, 1),
                    help="file datasets ship images to the device as uint8 "
                         "and divide by 255 there (4x fewer bytes)")
+    p.add_argument("--fs_only", action="store_true",
+                   help="ablation: purely supervised, no episode-L1 phase "
+                        "(reference experiments/t2onet-L1/train_actor_fs.py)")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="trace N steps (after 4 warm-up steps) with "
+                        "torch.profiler into {run_dir}/profile")
     return p
 
 
@@ -116,7 +130,7 @@ def main(argv=None, parser=None):
         # production order, so it knows each batch's phase and ships only
         # what that phase reads (the episode phase: img_x and the final
         # teacher image, not the whole img_y stack)
-        sup = next(stage_itr) % 2 == 1
+        sup = a.fs_only or next(stage_itr) % 2 == 1
         if sup:
             keep = {k: b[k] for k in ("x", "y", "img_x", "img_y",
                                       "gt_params")}
@@ -135,8 +149,16 @@ def main(argv=None, parser=None):
     sums = {k: torch.zeros((), device=device) for k in keys}
     counts = {k: 0 for k in keys}
     tik = time.time()
+    # profile window: steps prof_start..prof_stop, after both phases warm
+    prof_start = start_itr + 4 if a.profile_steps else -1
+    prof_stop = prof_start + a.profile_steps - 1
+    prof_dir = os.path.join(run_dir, "profile")
+    prof = None
     try:
         for itr, (sup, batch) in enumerate(it, start=start_itr):
+            if itr == prof_start:
+                prof = profiling.trace(prof_dir)
+                prof.__enter__()
             if sup:
                 m = supervised_step(state, batch)
             else:
@@ -146,6 +168,11 @@ def main(argv=None, parser=None):
                 if k in sums:
                     sums[k] = sums[k] + v
                     counts[k] += 1
+            if prof is not None and itr >= prof_stop:
+                prof.__exit__(None, None, None)
+                prof = None
+                print(f"profile trace ({itr - prof_start + 1} steps) -> "
+                      f"{prof_dir}", flush=True)
 
             if itr % a.print_every == 0:
                 avg = {k: float(sums[k]) / max(counts[k], 1) for k in keys}
@@ -174,6 +201,8 @@ def main(argv=None, parser=None):
     finally:
         it.close()
         logger.close()
+        if prof is not None:      # the run ended inside the profile window
+            prof.__exit__(None, None, None)
     print("training done")
     return state
 

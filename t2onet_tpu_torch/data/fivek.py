@@ -1,8 +1,9 @@
 """FiveK readers (counterpart of `t2onet_tpu.data.fivek`): the square
 training image and the short-side-600 eval image, the planner
-trajectory's truncation, the planner JSON -> (ops, params) parse, and the
-image-pair dataset of the val and test splits. The train split's dataset
-with the planner's actions (`FiveKAct`) waits for FiveK's action files.
+trajectory's truncation, the planner JSON -> (ops, params) parse, the
+image-pair dataset (`FiveK`) and the train split's dataset with the
+planner's actions (`FiveKAct`, read from
+`{act_dir}/{phase}{i}/{i:05d}.json` and its per-step edit JPEGs).
 
 Images are read as the reference reads them: cv2 (imported where it is
 used), BGR -> RGB, CHW, resized with cv2's default bilinear resize on
@@ -109,7 +110,12 @@ class FiveK:
     in-training validation batches. The train split always loads at
     train_img_size. wire_dtype=np.uint8 keeps fixed-size images 8-bit
     (divided by 255 on the device); native images are f32 always.
-    Every item is decoded anew from its JPEGs.
+
+    Fixed-size items (the train split, train_size eval) are decoded once
+    and kept, read-only, up to a budget of T2ONET_CACHE_GB gigabytes
+    (default 16; 0 caches nothing): the JPEG decode and resize on the
+    host is the trainer's bottleneck, and the decoded items are small.
+    Native-resolution items vary in size and are read once anyway.
     """
 
     def __init__(self, img_dir: str, anno_dir: str, phase: str,
@@ -124,9 +130,30 @@ class FiveK:
         self.wire_dtype = np.dtype(wire_dtype)
         with open(os.path.join(anno_dir, f"{phase}_sess_{session}.json")) as f:
             self.data = json.load(f)
+        self._cache: dict = {}
+        self._cache_budget = float(
+            os.environ.get("T2ONET_CACHE_GB", "16")) * 1e9
+        self._cache_bytes = 0
 
     def __len__(self):
         return len(self.data)
+
+    def _cache_get(self, item: int):
+        return self._cache.get(item)
+
+    def _cache_put(self, item: int, tup):
+        """Keep a fixed-size item while the budget allows; returns it."""
+        if not self._fixed_size():
+            return tup
+        size = sum(a.nbytes for a in tup if isinstance(a, np.ndarray))
+        if self._cache_bytes + size > self._cache_budget:
+            return tup
+        for a in tup:
+            if isinstance(a, np.ndarray):
+                a.flags.writeable = False      # shared across epochs
+        self._cache[item] = tup
+        self._cache_bytes += size
+        return tup
 
     def _fixed_size(self) -> bool:
         return self.phase == "train" or self.eval_img_mode == "train_size"
@@ -138,9 +165,13 @@ class FiveK:
         return load_infer_img_short_size_bounded(path, 600)
 
     def __getitem__(self, item: int):
+        hit = self._cache_get(item)
+        if hit is not None:
+            return hit
         d = self.data[item]
-        return (self._load(d["input"]), self._load(d["output"]),
-                np.asarray(d["request_idx"], np.int64), d["request"])
+        return self._cache_put(item, (
+            self._load(d["input"]), self._load(d["output"]),
+            np.asarray(d["request_idx"], np.int64), d["request"]))
 
     def batches(self, batch_size: int, steps: int, shuffle: bool = True,
                 seed: int = 0, sequential: bool = False):
@@ -160,4 +191,63 @@ class FiveK:
                 "img_y": np.stack([it[1] for it in items])[:, None],
                 "x": np.stack([it[2] for it in items]).astype(np.int32),
                 "req": [it[3] for it in items],
+            }
+
+
+class FiveKAct(FiveK):
+    """Adds the planner's pseudo ground truth: items are (input, the
+    planned steps' images then the output (op_max_len + 1, 3, S, S),
+    request ids, ops, params, request). A step image missing on disk
+    reads as zeros, as do the steps past the truncated trajectory."""
+
+    def __init__(self, img_dir: str, anno_dir: str, act_dir: str, phase: str,
+                 session: int = 1, train_img_size: int = 128,
+                 op_max_len: int = 5, wire_dtype=np.float32):
+        super().__init__(img_dir, anno_dir, phase, session, train_img_size,
+                         wire_dtype=wire_dtype)
+        self.act_dir = act_dir
+        self.op_max_len = op_max_len
+
+    def get_act(self, item: int):
+        item_dir = os.path.join(self.act_dir, f"{self.phase}{item}")
+        with open(os.path.join(item_dir, f"{item:05d}.json")) as f:
+            act = json.load(f)
+        op_seq, params, trunc = parse_action_json(act, self.op_max_len)
+        imgs = np.zeros(
+            (self.op_max_len, 3, self.train_img_size, self.train_img_size),
+            self.wire_dtype)
+        for i in range(trunc):
+            p = os.path.join(item_dir, f"edit{i}.jpg")
+            if os.path.exists(p):
+                imgs[i] = load_train_img(p, self.train_img_size,
+                                         self.wire_dtype)
+        return op_seq, params, imgs
+
+    def __getitem__(self, item: int):
+        hit = self._cache_get(item)
+        if hit is not None:
+            return hit
+        d = self.data[item]
+        input_img = self._load(d["input"])
+        output_img = self._load(d["output"])
+        ops, params, imgs = self.get_act(item)
+        output_imgs = np.concatenate([imgs, output_img[None]], axis=0)
+        return self._cache_put(item, (
+            input_img, output_imgs, np.asarray(d["request_idx"], np.int64),
+            ops, params, d["request"]))
+
+    def batches(self, batch_size: int, steps: int, shuffle: bool = True,
+                seed: int = 0):
+        """Training batches: img_x, img_y (B, op_max_len + 1, 3, S, S),
+        x and y int32, gt_params, req."""
+        for sel in epoch_index_batches(len(self), batch_size, steps,
+                                       shuffle, np.random.default_rng(seed)):
+            items = [self[int(j)] for j in sel]
+            yield {
+                "img_x": np.stack([it[0] for it in items]),
+                "img_y": np.stack([it[1] for it in items]),
+                "x": np.stack([it[2] for it in items]).astype(np.int32),
+                "y": np.stack([it[3] for it in items]).astype(np.int32),
+                "gt_params": np.stack([it[4] for it in items]),
+                "req": [it[5] for it in items],
             }

@@ -181,6 +181,28 @@ class GIER:
                 for k, v in mask_dict.items()}
         return out
 
+    def get_pair_item(self, pair_id: int) -> Dict:
+        """One annotated pair at train_img_size whatever the split (the
+        planner's item): images, op ids, is_local flags, the pair's
+        requests (expert, then amateur) and, with is_load_mask, each
+        local op's unioned mask."""
+        d = self.op_data[pair_id]
+        op_idx, is_local, mask_dict = self.get_op_info(pair_id)
+        out = {"input": load_train_img(os.path.join(self.img_dir, d["input"]),
+                                       self.train_img_size, self.wire_dtype),
+               "output": load_train_img(
+                   os.path.join(self.img_dir, d["output"]),
+                   self.train_img_size, self.wire_dtype),
+               "is_local": is_local, "op_idx": op_idx,
+               "request": d["expert_summary"] + d["amateur_summary"]}
+        if self.is_load_mask:
+            size = (self.train_img_size, self.train_img_size)
+            out["mask_dict"] = {
+                k: self.resize_and_union_mask(
+                    v, d["input"].split("_")[0], size).astype(np.float32)
+                for k, v in mask_dict.items()}
+        return out
+
     def __len__(self):
         return len(self.op_data)
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from t2onet_tpu_torch.models.actor import Actor, select_end_images
+from t2onet_tpu_torch.ops.color import abs_
 
 
 class TrainState:
@@ -65,7 +66,7 @@ def supervised_losses(logprobs, pred_params, y, gt_params, null_id: int = 0):
 def episode_l1_loss(imgs, ops, gt_img, end_id: int = 2):
     """Mean L1 between the <END>-selected rollout image and gt."""
     pred = select_end_images(imgs, ops, end_id)
-    return (pred - gt_img).abs().mean()
+    return abs_(pred - gt_img).mean()
 
 
 def supervised_step(state: TrainState, batch):

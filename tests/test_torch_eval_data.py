@@ -102,7 +102,7 @@ def test_gier_native_items_match_jax():
 @pytest.mark.parametrize("dataset", ["FiveK", "GIER"])
 def test_build_dataset_and_vocab_matches_jax(dataset):
     """The eval CLIs' test set: JAX's length, vocabulary, op names and
-    GloVe rows; FiveK's train split waits for its planner actions."""
+    GloVe rows; FiveK's train split reads the planner's actions."""
     if dataset == "FiveK":
         argv = ["--data_dir", H2H]
         a = test_fivek.eval_parser().parse_args(argv)
@@ -123,8 +123,12 @@ def test_build_dataset_and_vocab_matches_jax(dataset):
     np.testing.assert_array_equal(w2v, jw2v)
     _assert_items_equal(ds[1], jds[1])
     if dataset == "FiveK":
-        with pytest.raises(NotImplementedError, match="A2"):
-            common.build_dataset_and_vocab(a, "train")
+        # the train split: FiveKAct over the planner's actions, from
+        # JAX's default act_dir
+        train = common.build_dataset_and_vocab(a, "train")[0]
+        jtrain = jcommon.build_dataset_and_vocab(ja, "train")[0]
+        assert type(train).__name__ == type(jtrain).__name__ == "FiveKAct"
+        assert train.act_dir == jtrain.act_dir
         # the .npy copy through --glove_path gives the same rows
         a.glove_path = FIVEK_NPY
         np.testing.assert_array_equal(
