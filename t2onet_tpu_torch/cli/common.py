@@ -2,8 +2,8 @@
 datasets, actor construction, scalar logging (counterpart of the
 trainers' and evals' parts of `t2onet_tpu.cli.common`). The flags are
 the JAX CLI's, with its defaults, `--device` in place of `--cpu`, and
-`--glove_path` for hosts without h5py; the unported model modes
-(discrete params, bf16 ResNet) come with the code that reads them."""
+`--glove_path` for hosts without h5py. As in JAX, the ResNet's depth has
+no flag: a Bottleneck encoder is reached through `ModelConfig`."""
 
 from __future__ import annotations
 
@@ -62,6 +62,14 @@ def add_base_args(p: argparse.ArgumentParser):
                         "64,128,256,512); shrink for tiny smoke runs")
     p.add_argument("--vis_feat_dim", type=int, default=None,
                    help="vis-encoder output feature dim (default 512)")
+    p.add_argument("--discrete_param", type=int, default=0,
+                   help="classify each scalar op param over discrete_step "
+                        "bins (the reference's discrete_param)")
+    p.add_argument("--discrete_step", type=int, default=10)
+    p.add_argument("--vis_bf16", type=int, default=0,
+                   help="run the vis encoder's convolutions and "
+                        "activations in bfloat16; params and BatchNorm "
+                        "statistics stay f32")
     # operator ranges
     p.add_argument("--exposure_range", type=float, default=3.5)
     p.add_argument("--sharpness_range", type=float, default=1.5)
@@ -118,6 +126,8 @@ def args_to_config(a) -> Config:
         use_attention=bool(a.use_attention),
         operator_fc_dim=a.operator_fc_dim,
         fix_input_embedding=bool(a.fix_input_embedding),
+        discrete_param=bool(a.discrete_param),
+        discrete_step=a.discrete_step, vis_bf16=bool(a.vis_bf16),
         **({"resnet_widths": tuple(
             int(x) for x in a.resnet_widths.split(","))}
            if a.resnet_widths else {}),

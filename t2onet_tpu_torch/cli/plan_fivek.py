@@ -12,8 +12,8 @@ parameters fitted by one batched Adam per step on the device.
 It runs on the card (`--device cuda`, the default) and raises where
 PyTorch finds none; `--device cpu` runs it on the CPU. The learned
 distance (`--dist_type seq2seqGAN-disc` with `--disc_run_dir` or
-`--torch_gan_ckpt`) waits for the GAN port (ROADMAP A7), and
-`--data_parallel` for multi-GPU (A8): the parser refuses them.
+`--torch_gan_ckpt`) waits for the GAN port (ROADMAP A5), and
+`--data_parallel` for multi-GPU (A6): the parser refuses them.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def dist_type(value: str) -> str:
     is refused by name."""
     if value.lower() in ("seq2seqgan-disc", "disc"):
         raise argparse.ArgumentTypeError(
-            f"{value} waits for the GAN port (ROADMAP A7)")
+            f"{value} waits for the GAN port (ROADMAP A5)")
     try:
         return normalize_dist_type(value)
     except ValueError as e:
@@ -77,9 +77,9 @@ def plan_parser() -> argparse.ArgumentParser:
     for flag in ("--disc_run_dir", "--torch_gan_ckpt"):
         p.add_argument(flag, action=refuse(
             flag, "(the learned planner distance) waits for the GAN port "
-                  "(ROADMAP A7)"))
+                  "(ROADMAP A5)"))
     p.add_argument("--data_parallel", action=refuse(
-        "--data_parallel", "waits for the multi-GPU port (ROADMAP A8)"))
+        "--data_parallel", "waits for the multi-GPU port (ROADMAP A6)"))
     return p
 
 

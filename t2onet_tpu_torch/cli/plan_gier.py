@@ -11,7 +11,7 @@ and edit{k}.jpg.
 It runs on the card (`--device cuda`, the default) and raises where
 PyTorch finds none; `--device cpu` runs it on the CPU. A trained inpaint
 filler (`--inpaint_ckpt`, `--edgeconnect_dir`) waits for the inpaint
-port (ROADMAP A7): the parser refuses both.
+port (ROADMAP A5): the parser refuses both.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ def plan_parser() -> argparse.ArgumentParser:
     for flag in ("--inpaint_ckpt", "--edgeconnect_dir"):
         p.add_argument(flag, action=refuse(
             flag, "(a trained inpaint filler) waits for the inpaint port "
-                  "(ROADMAP A7)"))
+                  "(ROADMAP A5)"))
     return p
 
 

@@ -20,7 +20,11 @@ the planner's actions):
       --glove_path data_real_h2h_acts/FiveK_vocabs_glove_feat_1.npy
 
 `--fs_only` trains the supervised phase alone (`cli/train_actor_fs.py`),
-and `--profile_steps N` traces N steps with torch.profiler.
+`--per_step_bn` runs the supervised phase's ResNet once per decode step,
+`--episode_probe N` decodes the episode phase at N px (execution and the
+L1 stay at --img_size), and `--profile_steps N` traces N steps with
+torch.profiler. The model's modes are the common flags `--vis_bf16` and
+`--discrete_param` / `--discrete_step`.
 
 It runs on the card (`--device cuda`, the default) and raises where
 PyTorch finds none; `--device cpu` runs it on the CPU.
@@ -75,6 +79,15 @@ def train_parser() -> argparse.ArgumentParser:
     p.add_argument("--fs_only", action="store_true",
                    help="ablation: purely supervised, no episode-L1 phase "
                         "(reference experiments/t2onet-L1/train_actor_fs.py)")
+    p.add_argument("--per_step_bn", action="store_true",
+                   help="the reference's per-step BatchNorm statistics in "
+                        "the supervised phase (one ResNet forward per "
+                        "decode step; default: all steps in one forward)")
+    p.add_argument("--episode_probe", type=int, default=0,
+                   help="the episode rollout decodes at this probe "
+                        "resolution (an antialiased bilinear view for the "
+                        "vis encoder) while the ops and the L1 run at "
+                        "--img_size; 0 = off")
     p.add_argument("--profile_steps", type=int, default=0,
                    help="trace N steps (after 4 warm-up steps) with "
                         "torch.profiler into {run_dir}/profile")
@@ -122,6 +135,10 @@ def main(argv=None, parser=None):
     fused = common.resolve_fused_exec(a.fused_exec, device)
     print(f"episode executor: "
           f"{'fused step kernels' if fused else 'one-hot bank'}")
+    probe = a.episode_probe or None
+    if probe:
+        print(f"episode probe resolution: {probe} px (execution and L1 at "
+              f"{a.img_size} px)")
 
     stage_itr = itertools.count(start_itr)
 
@@ -160,10 +177,11 @@ def main(argv=None, parser=None):
                 prof = profiling.trace(prof_dir)
                 prof.__enter__()
             if sup:
-                m = supervised_step(state, batch)
+                m = supervised_step(state, batch,
+                                    per_step_bn=a.per_step_bn)
             else:
                 m = episode_step(state, batch, generator=gen, sample=True,
-                                 fused_exec=fused)
+                                 fused_exec=fused, probe_size=probe)
             for k, v in m.items():
                 if k in sums:
                     sums[k] = sums[k] + v

@@ -6,8 +6,9 @@ The inverse of `t2onet_tpu/convert/torch_checkpoint.py:convert_state_dict`
 - Dense kernels (in, out) and LSTM w_ih / w_hh (in, 4H) are transposed;
 - conv kernels go from HWIO to OIHW;
 - the one LSTM bias b becomes bias_ih = b, bias_hh = 0;
-- the stacked per-op heads are unstacked and fc2 unpadded to the op's
-  parameter count;
+- the stacked per-op heads are unstacked and fc2 cut to the op's
+  parameter count, or in the discrete mode to at least `discrete_step`
+  columns (the bin logits);
 - flax BatchNorm scale / bias / mean / var become torch weight / bias /
   running_mean / running_var.
 
@@ -21,8 +22,9 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from t2onet_tpu_torch.models.actor import fc2_widths
 from t2onet_tpu_torch.models.resnet import blocks_per_stage
-from t2onet_tpu_torch.ops.operators import OP_NAMES, PARAM_COUNTS
+from t2onet_tpu_torch.ops.operators import OP_NAMES
 
 
 def _t(x):
@@ -52,10 +54,16 @@ def _lstm(sd, prefix, suffix, p):
 
 def jax_variables_to_state_dict(params: Dict, batch_stats: Dict,
                                 n_layers: int = 2,
-                                stage_blocks: Sequence[int] = (2, 2, 2, 2)
+                                stage_blocks: Sequence[int] = (2, 2, 2, 2),
+                                discrete_step: int = 0
                                 ) -> Dict[str, np.ndarray]:
     """JAX actor (params, batch_stats) pytrees -> port state_dict arrays
-    (the BatchNorm `num_batches_tracked` counters excepted)."""
+    (the BatchNorm `num_batches_tracked` counters excepted). The ResNet's
+    blocks are read as BasicBlocks or as Bottlenecks by their flax names
+    (`BasicBlock_n`: Conv_0..1, BatchNorm_0..1, shortcut Conv_2 +
+    BatchNorm_2; `Bottleneck_n`: Conv_0..2, BatchNorm_0..2, shortcut
+    Conv_3 alone). `discrete_step` > 0 keeps that many of fc2's columns
+    (`fc2_widths`)."""
     sd: Dict[str, np.ndarray] = {}
 
     enc = params["lang_encoder"]
@@ -82,21 +90,27 @@ def jax_variables_to_state_dict(params: Dict, batch_stats: Dict,
     sd["vis_encoder.fc.bias"] = vp["Dense_0"]["bias"]
     places = [(s, i) for s, n in enumerate(stage_blocks, 1)
               for i in range(n)]
+    bottleneck = "Bottleneck_0" in vp
+    kind = "Bottleneck" if bottleneck else "BasicBlock"
+    n_conv = 3 if bottleneck else 2
     for n, (stage, i) in enumerate(places):
         dst = f"vis_encoder.layer{stage}.{i}"
-        bp, bs = vp[f"BasicBlock_{n}"], vs[f"BasicBlock_{n}"]
-        sd[f"{dst}.conv1.weight"] = _oihw(bp["Conv_0"]["kernel"])
-        _bn(sd, f"{dst}.bn1", bp["BatchNorm_0"], bs["BatchNorm_0"])
-        sd[f"{dst}.conv2.weight"] = _oihw(bp["Conv_1"]["kernel"])
-        _bn(sd, f"{dst}.bn2", bp["BatchNorm_1"], bs["BatchNorm_1"])
-        if "Conv_2" in bp:
-            sd[f"{dst}.shortcut.0.weight"] = _oihw(bp["Conv_2"]["kernel"])
-            _bn(sd, f"{dst}.shortcut.1", bp["BatchNorm_2"], bs["BatchNorm_2"])
+        bp, bs = vp[f"{kind}_{n}"], vs[f"{kind}_{n}"]
+        for c in range(n_conv):
+            sd[f"{dst}.conv{c + 1}.weight"] = _oihw(bp[f"Conv_{c}"]["kernel"])
+            _bn(sd, f"{dst}.bn{c + 1}", bp[f"BatchNorm_{c}"],
+                bs[f"BatchNorm_{c}"])
+        if f"Conv_{n_conv}" in bp:
+            sd[f"{dst}.shortcut.0.weight"] = _oihw(
+                bp[f"Conv_{n_conv}"]["kernel"])
+            if not bottleneck:
+                _bn(sd, f"{dst}.shortcut.1", bp["BatchNorm_2"],
+                    bs["BatchNorm_2"])
 
     _bn(sd, "bn1", params["bn1"], batch_stats["bn1"])
 
     heads = params["heads"]
-    for i, (name, k) in enumerate(zip(OP_NAMES, PARAM_COUNTS)):
+    for i, (name, k) in enumerate(zip(OP_NAMES, fc2_widths(discrete_step))):
         pre = f"executor.{name}_op"
         sd[f"{pre}.fc1.weight"] = _t(heads["w1"][i])
         sd[f"{pre}.fc1.bias"] = heads["b1"][i]
@@ -110,9 +124,11 @@ def load_jax_variables(actor, params: Dict, batch_stats: Dict) -> None:
     """Fill a port `Actor` in place from a JAX actor's variables (numpy
     arrays). Every tensor of the actor must be covered, and every
     converted array must fit its tensor's shape."""
+    cfg = actor.cfg
     sd = jax_variables_to_state_dict(
-        params, batch_stats, actor.cfg.n_layers,
-        blocks_per_stage(actor.cfg.resnet_depth))
+        params, batch_stats, cfg.n_layers,
+        blocks_per_stage(cfg.resnet_depth),
+        cfg.discrete_step if cfg.discrete_param else 0)
     own = actor.state_dict()
     missing = [k for k in own
                if k not in sd and not k.endswith("num_batches_tracked")]

@@ -9,15 +9,21 @@ selected op.
 Op indexing: executor index 0..7 (order of OP_NAMES); a decoder vocab id
 maps to it as `vocab_id - 3`, and ids < 3 (<NONE>/<START>/<END>) execute
 as identity.
+
+The parameter modes: exploration noise on the predicted parameters
+(`add_param_noise`) and the discrete (classification) mode
+(`discrete_param_grid`, `gt_param_bins`, `select_discrete_params`). Their
+random draws come from a `torch.Generator`, or are fed in as tensors.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from t2onet_tpu_torch.ops import operators as O
-from t2onet_tpu_torch.ops.color import tanh_range
+from t2onet_tpu_torch.ops.color import clip, tanh_range
 
 N_OPS = 8
 MAX_PARAM = 24
@@ -63,6 +69,143 @@ def squash_params(raw, cfg):
         col(torch.sigmoid(x0[:, 7])),                        # white
     ]
     return torch.stack(cols, dim=1)
+
+
+def param_ranges(cfg):
+    """Per-op (ub, lb, initial) f32 arrays in executor order."""
+    ub = np.asarray([cfg.brightness_range, 1.0, cfg.saturation_range[1],
+                     cfg.color_curve_range[1], 0.0, cfg.tone_curve_range[1],
+                     cfg.sharpness_range, 1.0], np.float32)
+    lb = np.asarray([-cfg.brightness_range, -1.0, cfg.saturation_range[0],
+                     cfg.color_curve_range[0], 0.0, cfg.tone_curve_range[0],
+                     0.0, 0.0], np.float32)
+    initial = np.asarray(
+        [0.0, 0.0, 0.0,
+         (cfg.color_curve_range[0] + cfg.color_curve_range[1]) / 2, 0.0,
+         (cfg.tone_curve_range[0] + cfg.tone_curve_range[1]) / 2,
+         cfg.sharpness_range / 2, 0.5], np.float32)
+    return ub, lb, initial
+
+
+def _param_valid_mask():
+    """(N_OPS, MAX_PARAM): 1 where column j is a real parameter of op i."""
+    m = np.zeros((N_OPS, MAX_PARAM), np.float32)
+    for i, k in enumerate(O.PARAM_COUNTS):
+        m[i, :k] = 1.0
+    return m
+
+
+def add_param_noise(params, cfg, factor: float = 0.6, generator=None,
+                    normal=None):
+    """Exploration noise on predicted parameters: standard-normal draws
+    scaled so that +3 sigma spans `factor` of (initial..ub) and -3 sigma
+    `factor` of (lb..initial), then clamped to [lb, ub]; padding columns
+    stay as they are. The negative branch subtracts (the JAX package's
+    two-sided sign; the reference adds both terms, so its noise only ever
+    pushes parameters up).
+
+    :param params: (B, N_OPS, 24) squashed per-op params.
+    :param generator: torch.Generator on params' device for the draws,
+        unless `normal` (a (B, N_OPS, 24) tensor of standard-normal draws)
+        is fed in.
+    """
+    if normal is None:
+        if generator is None:
+            raise ValueError("add_param_noise needs a generator or fed "
+                             "normal draws")
+        normal = torch.randn(params.shape, generator=generator,
+                             device=params.device, dtype=params.dtype)
+    ub, lb, initial = (torch.as_tensor(v, device=params.device)[None, :, None]
+                       for v in param_ranges(cfg))
+    scaled = (F.relu(normal) * (ub - initial)
+              - F.relu(-normal) * (initial - lb)) / 3.0 * factor
+    noised = clip(params + scaled, lb, ub)
+    valid = torch.as_tensor(_param_valid_mask(), device=params.device)[None]
+    return torch.where(valid > 0, noised, params)
+
+
+def discrete_param_grid(cfg, num: int = 10):
+    """Candidate values per op for the discrete mode: a range starting at
+    0 takes linspace(0, ub, num + 1) without the 0, a symmetric range
+    linspace(lb, ub, num + 1) without its middle 0. Ops with several
+    parameters, the (0, 0) inpaint range and saturation's asymmetric
+    range are unsupported and keep the regression output.
+    Returns (grid (N_OPS, num) f32, supported (N_OPS,) bool)."""
+    ub, lb, _ = param_ranges(cfg)
+    grid = np.zeros((N_OPS, num), np.float32)
+    supported = np.zeros((N_OPS,), bool)
+    for i in range(N_OPS):
+        if O.PARAM_COUNTS[i] != 1 or (ub[i] == 0 and lb[i] == 0):
+            continue
+        if lb[i] == 0:
+            grid[i] = np.delete(np.linspace(0, ub[i], num + 1), 0)
+        elif lb[i] == -ub[i]:
+            grid[i] = np.delete(np.linspace(lb[i], ub[i], num + 1), num // 2)
+        else:
+            continue
+        supported[i] = True
+    return grid, supported
+
+
+def gt_param_bins(gt_scalar, op_exec_idx, cfg, num: int = 10):
+    """The nearest grid bin of each ground-truth scalar under its op's
+    grid (the first of equally near bins). Returns (bins, supported):
+    entries of special tokens (index < 0) and of unsupported ops are
+    unsupported."""
+    grid, supported = discrete_param_grid(cfg, num)
+    dev = gt_scalar.device
+    idx = torch.clamp(op_exec_idx, 0, N_OPS - 1).long()
+    d = (torch.as_tensor(grid, device=dev)[idx] - gt_scalar[..., None]).abs()
+    bins = torch.argmin(d, dim=-1)
+    sup = torch.as_tensor(supported, device=dev)[idx] & (op_exec_idx >= 0)
+    return bins, sup
+
+
+def select_discrete_params(raw, cont_params, sample: bool,
+                           explore_prob: float, cfg, num: int = 10,
+                           generator=None, gumbel=None):
+    """The discrete mode's parameters. The first `num` columns of each
+    op's raw head output are bin logits, and the value is the chosen
+    bin's grid entry: the argmax, or with `sample` a Gumbel-max draw over
+    log(probs + 1e-30) of the softmax smoothed with explore_prob / num,
+    as `jax.random.categorical` draws. Unsupported ops keep
+    `cont_params`.
+
+    :param raw: (B, N_OPS, 24) pre-squash head features.
+    :param cont_params: (B, N_OPS, 24) regression params.
+    :param generator: torch.Generator for the draw (sample=True), unless
+        `gumbel` ((B, N_OPS, num) standard Gumbel draws) is fed in.
+    :return: (params (B, N_OPS, 24), bin log-probs (B, N_OPS, num)).
+    """
+    grid, supported = discrete_param_grid(cfg, num)
+    dev = raw.device
+    logp = F.log_softmax(raw[:, :, :num], dim=-1)
+    if sample:
+        probs = torch.exp(logp) * (1.0 - explore_prob) + explore_prob / num
+        probs = probs / (probs.sum(dim=-1, keepdim=True) + 1e-30)
+        if gumbel is None:
+            if generator is None:
+                raise ValueError("a sampled discrete draw needs a "
+                                 "generator or fed Gumbel draws")
+            gumbel = gumbel_noise(probs.shape, generator)
+        ind = torch.argmax(gumbel + torch.log(probs.detach() + 1e-30), dim=-1)
+    else:
+        ind = torch.argmax(logp, dim=-1)
+    vals = torch.as_tensor(grid, device=dev)[
+        torch.arange(N_OPS, device=dev)[None], ind]          # (B, N_OPS)
+    disc = torch.zeros_like(cont_params)
+    disc[:, :, 0] = vals
+    sup = torch.as_tensor(supported, device=dev)[None, :, None]
+    return torch.where(sup, disc, cont_params), logp
+
+
+def gumbel_noise(shape, generator: torch.Generator):
+    """Standard Gumbel draws on the generator's device, as
+    `jax.random.gumbel`: -log(-log(u)), u uniform on [tiny, 1). torch's
+    generators give other numbers than JAX's keys from the same seed."""
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = torch.clamp_min(u, torch.finfo(u.dtype).tiny)
+    return -torch.log(-torch.log(u))
 
 
 def execute_onehot(img, onehot, params, mask=None, inpaint_fn=None):

@@ -8,8 +8,8 @@ Arrays come in and go out as numpy; `device` says where the fits run
 (the card unless the caller asks for the CPU).
 
 Not ported yet: learned distances (`score_fn`) and a trained inpaint
-filler (`inpaint_fn`) wait for the GAN and inpaint port (ROADMAP A7),
-and sharded planning (`mesh`) for multi-GPU (A8); each raises
+filler (`inpaint_fn`) wait for the GAN and inpaint port (ROADMAP A5),
+and sharded planning (`mesh`) for multi-GPU (A6); each raises
 NotImplementedError.
 """
 
@@ -39,11 +39,11 @@ def _unported(score_fn=None, inpaint_fn=None, mesh=None):
         raise NotImplementedError(
             "learned-distance planning (score_fn) and a trained inpaint "
             "filler (inpaint_fn) wait for the GAN and inpaint port "
-            "(ROADMAP A7)")
+            "(ROADMAP A5)")
     if mesh is not None:
         raise NotImplementedError(
             "sharded planning (mesh) waits for the multi-GPU port "
-            "(ROADMAP A8)")
+            "(ROADMAP A6)")
 
 
 def _fit_step(I_buff: np.ndarray, target, op_slots, n_starts, n_iters, lr,
@@ -96,7 +96,7 @@ def normalize_dist_type(dist_type: str) -> str:
         raise ValueError(
             f"dist_type {dist_type!r} invalid — 'l1'/'l2' here; learned "
             "distances ('seq2seqGAN-disc') wait for the GAN port "
-            "(ROADMAP A7)")
+            "(ROADMAP A5)")
     return d
 
 

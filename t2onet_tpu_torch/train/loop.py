@@ -7,6 +7,10 @@
 - even iterations (episode): sampled free rollout, each sample's image at
   its first <END>, mean |.| L1 to the ground-truth image.
 
+In the discrete parameter mode the supervised param loss adds the bin
+cross-entropy (`discrete_param_loss`), which is what trains the bin
+logits.
+
 One Adam over every trainable parameter, stepped by both phases. Every
 parameter takes part in every step: a parameter that got no gradient
 (decoder.out_linear in the episode phase, whose ops are picked by argmax
@@ -21,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from t2onet_tpu_torch.models.actor import Actor, select_end_images
+from t2onet_tpu_torch.ops import bank
 from t2onet_tpu_torch.ops.color import abs_
 
 
@@ -63,20 +68,45 @@ def supervised_losses(logprobs, pred_params, y, gt_params, null_id: int = 0):
     return op_loss, param_loss
 
 
+def discrete_param_loss(bin_logp, y, gt_params, opcfg, num: int = 10):
+    """Bin cross-entropy of the discrete parameter mode: the target is the
+    nearest grid bin of the ground-truth scalar under the ground-truth op,
+    over steps whose op is discrete-capable with a nonzero ground-truth
+    param, normalised like the param MSE.
+
+    bin_logp (B, S, N_OPS, num); y (B, T); gt_params (B, S, 24)."""
+    s = bin_logp.shape[1]
+    exec_idx = y[:, 1:1 + s].long() - bank.VOCAB_OFFSET
+    gt_scalar = gt_params[..., 0]
+    bins, sup = bank.gt_param_bins(gt_scalar, exec_idx, opcfg, num)
+    safe_idx = torch.clamp(exec_idx, 0, bank.N_OPS - 1)
+    lp_op = torch.gather(bin_logp, 2, safe_idx[:, :, None, None].expand(
+        -1, -1, 1, num))[:, :, 0]                           # (B, S, num)
+    lp = torch.gather(lp_op, 2, bins[:, :, None])[..., 0]
+    mask = (sup & (gt_scalar != 0)).to(lp.dtype)
+    return -(lp * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
 def episode_l1_loss(imgs, ops, gt_img, end_id: int = 2):
     """Mean L1 between the <END>-selected rollout image and gt."""
     pred = select_end_images(imgs, ops, end_id)
     return abs_(pred - gt_img).mean()
 
 
-def supervised_step(state: TrainState, batch):
+def supervised_step(state: TrainState, batch, per_step_bn: bool = False):
     """batch: x (B,L), y (B,T), img_x (B,3,H,W), img_y (B,T-1,3,H,W),
-    gt_params (B,T-2,24), all on the actor's device."""
-    state.actor.train()
-    _, pred_params, logprobs = state.actor.supervised(
-        batch["x"], batch["y"], batch["img_x"], batch["img_y"])
-    op_loss, param_loss = supervised_losses(logprobs, pred_params,
-                                            batch["y"], batch["gt_params"])
+    gt_params (B,T-2,24), all on the actor's device. `per_step_bn`: one
+    ResNet forward per decode step (`Actor.supervised`)."""
+    actor = state.actor
+    actor.train()
+    out = actor.supervised(batch["x"], batch["y"], batch["img_x"],
+                           batch["img_y"], per_step_bn=per_step_bn)
+    op_loss, param_loss = supervised_losses(out[2], out[1], batch["y"],
+                                            batch["gt_params"])
+    if actor.cfg.discrete_param:
+        param_loss = param_loss + discrete_param_loss(
+            out[3], batch["y"], batch["gt_params"], actor.opcfg,
+            actor.cfg.discrete_step)
     loss = op_loss + param_loss
     state.apply_gradients(loss)
     return {"loss": loss.detach(), "op_loss": op_loss.detach(),
@@ -84,17 +114,20 @@ def supervised_step(state: TrainState, batch):
 
 
 def episode_step(state: TrainState, batch, generator=None, sample=True,
-                 fused_exec=False, noise_fn=None):
+                 fused_exec=False, noise_fn=None, probe_size=None):
     """batch: x (B,L), img_x (B,3,H,W), gt_img (B,3,H,W), and for GIER's
     local edits masks_vocab (B,n_cls,1,H,W), the per-op masks each
-    rollout step gathers by its predicted op. With `sample`, ops are
-    drawn with Gumbel noise from `generator` (or `noise_fn`);
-    `fused_exec` executes each step through `ops.step.fused_step`."""
+    rollout step gathers by its predicted op. With `sample`, ops (and in
+    the discrete mode bins) are drawn with Gumbel noise from `generator`
+    (or `noise_fn`); `fused_exec` executes each step through
+    `ops.step.fused_step`; `probe_size` decodes each step at that
+    resolution while execution and the L1 stay at the batch's."""
     state.actor.train()
     out = state.actor.episode(batch["x"], batch["img_x"], sample=sample,
                               generator=generator, noise_fn=noise_fn,
                               fused_exec=fused_exec,
-                              masks=batch.get("masks_vocab"))
+                              masks=batch.get("masks_vocab"),
+                              probe_size=probe_size)
     loss = episode_l1_loss(out["imgs"], out["ops"], batch["gt_img"])
     state.apply_gradients(loss)
     return {"L1_loss": loss.detach()}

@@ -109,6 +109,7 @@ def jax_actor(cfg, vocab_size, x, img, seed=0, knots_near_one=False):
     numpy draws at torch-default scales, and every BatchNorm gets a
     non-trivial scale, bias, mean and var so that the weights bridge is
     tested on each. The heads' fc2 columns past each op's parameter count
+    (in the discrete mode past `fc2_widths`, which keeps the bin logits)
     are never read and the port has none: they are zero.
 
     knots_near_one adds 1 to the color and tone heads' fc2 bias, so the
@@ -120,7 +121,7 @@ def jax_actor(cfg, vocab_size, x, img, seed=0, knots_near_one=False):
 
     from t2onet_tpu.config import OperatorConfig
     from t2onet_tpu.models.actor import Actor
-    from t2onet_tpu.ops.operators import PARAM_COUNTS
+    from t2onet_tpu_torch.models.actor import fc2_widths
 
     actor = Actor(cfg=cfg, opcfg=OperatorConfig(), vocab_size=vocab_size)
     shapes = jax.eval_shape(actor.init, {"params": jax.random.PRNGKey(0)},
@@ -131,7 +132,8 @@ def jax_actor(cfg, vocab_size, x, img, seed=0, knots_near_one=False):
     rng = np.random.default_rng(seed)
     stats = _f32(_bn_stats(_unfreeze(shapes["batch_stats"]), rng))
     params = _f32(_fill(_unfreeze(shapes["params"]), stats, (), rng))
-    for i, k in enumerate(PARAM_COUNTS):
+    widths = fc2_widths(cfg.discrete_step if cfg.discrete_param else 0)
+    for i, k in enumerate(widths):
         params["heads"]["w2"][i, :, k:] = 0.0
         params["heads"]["b2"][i, k:] = 0.0
     if knots_near_one:
@@ -234,6 +236,119 @@ def check_train_step(pstate, jstate1, p_loss, j_loss, params0, n_layers, lr,
     for k in js:
         np.testing.assert_allclose(new_s[k], js[k], atol=1e-5,
                                    rtol=stats_rtol, err_msg=k)
+
+
+def bridged(params, stats, cfg):
+    """JAX variable trees (or gradient trees of the same shape) in the
+    port's state_dict names, through the port's weights bridge: the
+    comparison for modes JAX's `convert_state_dict` does not read (the
+    Bottleneck ResNet, the discrete heads' wider fc2)."""
+    import jax
+
+    from t2onet_tpu_torch.convert import jax_variables_to_state_dict
+    from t2onet_tpu_torch.models.resnet import blocks_per_stage
+
+    def tree(t):
+        return _unfreeze(jax.tree_util.tree_map(np.asarray, t))
+
+    return jax_variables_to_state_dict(
+        tree(params), tree(stats), cfg.n_layers,
+        blocks_per_stage(cfg.resnet_depth),
+        cfg.discrete_step if cfg.discrete_param else 0)
+
+
+def check_train_step_bridged(pstate, jstate1, p_loss, j_loss, params0,
+                             stats0, cfg, lr):
+    """`check_train_step` in the port's names (`bridged`): the loss, each
+    trainable tensor's gradient, the updated parameters and the BatchNorm
+    statistics, with the same tolerances."""
+    import jax
+
+    np.testing.assert_allclose(float(p_loss), float(j_loss), rtol=1e-5)
+    jg = bridged(jax.tree_util.tree_map(lambda m: m / 0.1,
+                                        jstate1.opt_state[0].mu), stats0, cfg)
+    jnew = bridged(jstate1.params, jstate1.batch_stats, cfg)
+    old = bridged(params0, stats0, cfg)
+    assert_grads_and_stats_match(pstate.actor, jg, jnew)
+    for n, p in pstate.actor.named_parameters():
+        if not p.requires_grad:
+            continue
+        gtol = 2e-3 * np.abs(jg[n]).max() + 1e-8
+        new = p.detach().numpy()
+        clear = np.abs(jg[n]) > max(10 * gtol, 1e-6)
+        np.testing.assert_allclose(new[clear], jnew[n][clear], atol=1e-6,
+                                   rtol=0, err_msg=n)
+        assert (np.abs(new - old[n]) <= lr * 1.0001).all(), n
+
+
+def assert_grads_and_stats_match(actor, jg, jsd):
+    """Each trainable tensor's `.grad` against JAX's gradients `jg`, and
+    the BatchNorm running statistics against `jsd` (both in the port's
+    names, `bridged`), with `check_train_step`'s tolerances."""
+    for n, p in actor.named_parameters():
+        if not p.requires_grad:
+            continue
+        pg = (p.grad.numpy() if p.grad is not None
+              else np.zeros(tuple(p.shape), np.float32))
+        gtol = 2e-3 * np.abs(jg[n]).max() + 1e-8
+        np.testing.assert_allclose(pg, jg[n], rtol=1e-3, atol=gtol,
+                                   err_msg=n)
+    for n, v in actor.state_dict().items():
+        if "running" in n:
+            np.testing.assert_allclose(v.numpy(), jsd[n], atol=1e-5,
+                                       err_msg=n)
+
+
+def draw_sequence(key, steps, b, n_cls, sample=True, discrete_step=0,
+                  noise_shape=None):
+    """The draws `Actor.episode` makes from `key`, in its order: per step
+    (key, sub = split(key) before each) the op's Gumbel draw when
+    `sample`, the bins' (b, 8, discrete_step) Gumbel draw when
+    discrete_step and `sample`, and the parameter noise's normal draw of
+    `noise_shape` when given. Returns (gumbels, normals) as lists of
+    numpy arrays, each Gumbel shape checked once to be what
+    `jax.random.categorical` adds to its logits."""
+    import jax
+    import jax.numpy as jnp
+
+    gumbels, normals, checked = [], [], set()
+
+    def gumbel(sub, shape):
+        g = jax.random.gumbel(sub, shape)
+        if shape not in checked:
+            checked.add(shape)
+            logits = jax.random.normal(jax.random.PRNGKey(7), shape)
+            np.testing.assert_array_equal(
+                np.asarray(jnp.argmax(logits + g, axis=-1)),
+                np.asarray(jax.random.categorical(sub, logits, axis=-1)))
+        gumbels.append(np.asarray(g))
+
+    for _ in range(steps):
+        if sample:
+            key, sub = jax.random.split(key)
+            gumbel(sub, (b, n_cls))
+        if discrete_step and sample:
+            key, sub = jax.random.split(key)
+            gumbel(sub, (b, 8, discrete_step))
+        if noise_shape is not None:
+            key, sub = jax.random.split(key)
+            normals.append(np.asarray(jax.random.normal(sub, noise_shape)))
+    return gumbels, normals
+
+
+def fed(arrays, device="cpu"):
+    """fn(shape) handing out `arrays` in order as tensors, each checked
+    against the shape asked for."""
+    import torch
+
+    it = iter(arrays)
+
+    def fn(shape):
+        a = next(it)
+        assert tuple(a.shape) == tuple(shape), (a.shape, shape)
+        return torch.from_numpy(a.copy()).to(device)
+
+    return fn
 
 
 def gumbel_draws(key, shape, steps):

@@ -99,22 +99,47 @@ def test_gier_native_items_match_jax():
         _assert_items_equal(b_got, b_want)
 
 
+def _jax_parser():
+    """The JAX CLI's base parser. JAX's `cli/train_gier._patch_parser`
+    (which its `plan_gier.main` and `test_gier.main` call) rebinds
+    `add_base_args` for the whole process to one that adds --data_mode and
+    --is_load_mask, so a test that adds --data_mode itself resolves the
+    clash rather than depend on which tests ran before it."""
+    jp = argparse.ArgumentParser(conflict_handler="resolve")
+    jcommon.add_base_args(jp)
+    return jp
+
+
 @pytest.mark.parametrize("dataset", ["FiveK", "GIER"])
 def test_build_dataset_and_vocab_matches_jax(dataset):
     """The eval CLIs' test set: JAX's length, vocabulary, op names and
     GloVe rows; FiveK's train split reads the planner's actions."""
+    _check_build_dataset_and_vocab(dataset)
+
+
+def test_build_dataset_and_vocab_after_jax_gier_patch(monkeypatch):
+    """The GIER case in a process where JAX's `_patch_parser` has already
+    wrapped `add_base_args` (pytest restores it afterwards)."""
+    from t2onet_tpu.cli import train_gier as jtrain_gier
+
+    orig = jcommon.add_base_args
+    monkeypatch.setattr(jcommon, "add_base_args", orig)
+    jtrain_gier._patch_parser()
+    assert jcommon.add_base_args is not orig
+    assert "--data_mode" in _jax_parser()._option_string_actions
+    _check_build_dataset_and_vocab("GIER")
+
+
+def _check_build_dataset_and_vocab(dataset):
     if dataset == "FiveK":
         argv = ["--data_dir", H2H]
         a = test_fivek.eval_parser().parse_args(argv)
-        jp = argparse.ArgumentParser()
-        jcommon.add_base_args(jp)
-        ja = jp.parse_args(argv)
+        ja = _jax_parser().parse_args(argv)
     else:
         argv = ["--data_dir", GIER_DATA, "--dataset", "GIER", "--session",
                 "3"]
         a = test_gier.eval_parser().parse_args(argv)
-        jp = argparse.ArgumentParser()
-        jcommon.add_base_args(jp)
+        jp = _jax_parser()
         jp.add_argument("--data_mode", default="global+shapeAlign")
         ja = jp.parse_args(argv)
     ds, vocab2id, id2op, w2v = common.build_dataset_and_vocab(a, "test")

@@ -152,15 +152,23 @@ def test_cuda_engine_without_card_raises(engines):
 
 
 def test_port_imports_no_jax():
-    """Importing and running the port's serving path loads neither JAX
-    nor the JAX package."""
+    """Importing and running the port's serving path, and the actor's
+    other modes and the RL modules, loads neither JAX nor the JAX
+    package."""
     code = (
         "import sys, numpy as np, torch\n"
         "from t2onet_tpu_torch.config import ModelConfig, OperatorConfig\n"
         "from t2onet_tpu_torch.models.actor import Actor\n"
         "from t2onet_tpu_torch.serve import ServingEngine\n"
         "import t2onet_tpu_torch.convert\n"
+        "import t2onet_tpu_torch.train.rl, t2onet_tpu_torch.cli.train_rl\n"
         "torch.set_num_threads(1)\n"
+        "m = Actor(ModelConfig.tiny(resnet_depth=50, vis_bf16=True,"
+        " discrete_param=True), OperatorConfig(), 10,"
+        " generator=torch.Generator().manual_seed(0))\n"
+        "m.episode(torch.ones(2, 3, dtype=torch.long), torch.rand(2, 3, 16,"
+        " 16), sample=True, param_noise=0.6, probe_size=8,"
+        " generator=torch.Generator().manual_seed(1))\n"
         "a = Actor(ModelConfig.tiny(encoder_max_len=8), OperatorConfig(), 10,"
         " generator=torch.Generator().manual_seed(0))\n"
         "e = ServingEngine(a, {'bright': 4}, device='cpu', decode_size=16,"
