@@ -2,8 +2,12 @@
 on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 4b,serve_pipeline,http,inpaint,demo_plan
 
-Phases (any failure exits non-zero):
+The second form runs the named phases alone after phases 1-3 (the
+eval's checkpoint that demo_plan reads is written without the eval) and
+prints their results as one JSON line, with no kernels line and no ok
+line. Phases (any failure exits non-zero): (any failure exits non-zero):
 
 1. device: a CUDA card of compute capability 9.0, with TF32 off for
    matmuls and cuDNN convolutions so that f32 means f32 (the port's own
@@ -140,7 +144,37 @@ Phases (any failure exits non-zero):
 20. RL: `cli.train_rl --synthetic` at full width, b64, 128 px, 2 warmup
    and 6 RL iterations with parameter noise 0.6: no kernel but the
    validation's 5 chains; the RL step's time; one RL step card against
-   CPU under the same noise, within phase 9's bounds.
+   CPU under the same noise, within phase 9's bounds;
+21. serving pipeline: phase 7's actor behind ServingEngine and a
+   MicroBatcher (linger 10 ms, pipeline depth 2): 8 threads submit 64
+   requests over two buckets; every result as edit_batch's (ops, params
+   within 1e-4, images within 1 level) and one B1 launch per
+   micro-batch; the bank executor (use_pallas=False) and decode_native
+   engines against the kernel's; device_compute_probe(512), req/s
+   through the batcher beside edit_batch's in turns, launch_s and sync_s,
+   one micro-batch's device ms and idle share (torch.profiler); a failed
+   flush and a failed launch mark their requests, the batcher serves on;
+22. HTTP: `cli.serve`'s engine and server on 127.0.0.1 behind its
+   batcher, 16 concurrent POST /edit with 512 px PNGs (200 with PNGs of
+   the input's shape), /healthz, 404 and 400; `cli.serve --bench 64
+   --img_size 512` and its JSON line;
+23. inpaint: `cli.train_inpaint` on data_real_h2h at the CLI's defaults
+   for 300 iterations (finite falling loss, a checkpoint, held-out hole
+   L1 below the blanked hole's); the train step's time; one step card
+   against CPU from the same weights (loss 1e-5 relative; the card's
+   gradients within 1e-5 of their norm of the CPU's f64 ones, each tensor
+   within phase 9's per-tensor bound, and within 5e-4 of the CPU's f32
+   ones, whose own rounding sits ~1.2e-4 from f64); EdgeConnect's full-width generators from random
+   state_dicts at 256², card against CPU within 1e-4;
+24. demo and planning with a filler: `cli.demo` on a real FiveK test
+   image from phase 12's checkpoint (B1 once per rollout step, card
+   against CPU), `--program` with a mask and each filler at 256², card
+   against CPU within one level of the 8-bit images the demo encodes
+   (the decoded JPEGs' gap printed); `cli.plan_gier --inpaint_ckpt` on
+   the 4 first shapeAlign train pairs with an inpaint mask at phase 15's
+   128 px: every filler call of the card's search again on the CPU from
+   the same input (outputs within 1e-4), and 2 of the pairs planned on
+   the CPU, held as phase 15 holds plans; no kernel launched.
 
 The last three lines of stdout are the kernels JSON line, the card's
 name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
@@ -517,7 +551,8 @@ def eval_chain_phase():
     it: a real FiveK image in its 640 x 640 bucket and one in a 576 x 1024
     bucket, each slot in turn; bit-exact against the plain version, then
     device time, call time, the plain version's call time and the bound
-    per slot."""
+    per slot; the variance probe's b10 x 600², and the demo's rollout
+    step, b1 at the image's own 600 x 600, each slot."""
     rng = np.random.default_rng(24)
     params = rng.uniform(0.1, 0.6, (1, 1, 24)).astype(np.float32)
     rows, worst = [], 0.0
@@ -574,7 +609,34 @@ def eval_chain_phase():
         f"0-8]: max abs err {err:.3e}; {probe['device_ms']:.4f} ms device, "
         f"{probe['call_ms']:.4f} ms call, plain {probe['plain_ms']:.4f} ms "
         f"call; bound {probe['bound_ms']:.4f} ms ({probe['bound_by']})")
-    return {"max_abs_err": worst, "rows": rows, "probe": probe}
+    # the demo's rollout: b1 at the image's own 600 x 600, every slot
+    demo_rows = []
+    for s in range(9):
+        args = to_card(np.ascontiguousarray(img[None]),
+                       np.full((1, 1), s, np.int32), params)
+        out = chain.fused_chain(*args)
+        torch.cuda.synchronize()
+        err = max_err(out, chain.fused_chain_reference(*args))
+        worst = max(worst, err)
+        if not err <= CHAIN_ATOL:
+            fail(f"chain kernel disagrees with its plain version on the "
+                 f"demo's b1 600x600 K1, slot {s}: max abs err {err}")
+        row = {"shape": "b1 600x600 K1", "slot": s,
+               "device_ms": statistics.median(device_ms(
+                   chain.fused_chain, rotations(args, 2 * img.size * 4))),
+               "call_ms": statistics.median(time_ms(
+                   lambda: chain.fused_chain(*args))),
+               "plain_ms": statistics.median(time_ms(
+                   lambda: chain.fused_chain_reference(*args), iters=10))}
+        row["bound_ms"], row["bound_by"] = chain_bound(args[1], 600, 600,
+                                                       False)
+        demo_rows.append(row)
+        log(f"chain vs plain [demo b1 600x600 K1, slot {s}]: max abs err "
+            f"{err:.3e}; {row['device_ms']:.4f} ms device, "
+            f"{row['call_ms']:.4f} ms call, plain {row['plain_ms']:.4f} ms "
+            f"call; bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return {"max_abs_err": worst, "rows": rows, "probe": probe,
+            "demo_rows": demo_rows}
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -1779,9 +1841,10 @@ def parting_step(got, want):
     return k
 
 
-def compare_plans(name, items):
-    """Hold the card's plans to the committed JAX set: items are (label,
-    port item dir, JAX item dir, json name).
+def compare_plans(name, items,
+                  against="the JAX planner's committed set"):
+    """Hold the card's plans to a reference, by default the committed JAX
+    set: items are (label, port item dir, reference item dir, json name).
 
     Where the top beams take the same ops: each step's distance within
     PLAN_DIST_TOL, the scalar ops' parameters within PLAN_SCALAR_TOL and
@@ -1828,7 +1891,7 @@ def compare_plans(name, items):
                 fail(f"{name}: {label} lacks edit{k}.jpg")
             gaps["pixel"] = max(gaps["pixel"], int(np.abs(
                 pa.astype(np.int32) - ja.astype(np.int32)).max()))
-    log(f"  {name} against the JAX planner's committed set, {len(items)} "
+    log(f"  {name} against {against}, {len(items)} "
         f"pairs: {len(items) - len(ties) - len(broken)} with the same "
         f"top-beam ops; largest gaps: init distance {gaps['init']:.3e} "
         f"(bound {PLAN_INIT_TOL}), step distance {gaps['dist']:.3e} (bound "
@@ -1838,15 +1901,15 @@ def compare_plans(name, items):
         f"{PLAN_PIXEL_TOL})")
     for label, k, final, got, beams in ties + broken:
         log(f"  {label}: the plans part at step {k}, final distances card "
-            f"{final[0]:.7f}, JAX {final[1]:.7f}: card {got}; JAX's beams "
-            f"{beams}")
+            f"{final[0]:.7f}, reference {final[1]:.7f}: card {got}; the "
+            f"reference's beams {beams}")
     if broken:
         fail(f"{name}: {len(broken)} plans differ beyond a near-tie: "
              f"{[r[0] for r in broken]}")
     if not (gaps["init"] <= PLAN_INIT_TOL and gaps["dist"] <= PLAN_DIST_TOL
             and gaps["scalar"] <= PLAN_SCALAR_TOL
             and gaps["pixel"] <= PLAN_PIXEL_TOL):
-        fail(f"{name}: the card's plans disagree with the JAX set: {gaps}")
+        fail(f"{name}: the card's plans disagree with {against}: {gaps}")
     return {**gaps, "near_ties": [r[0] for r in ties],
             "same_ops": len(items) - len(ties) - len(broken)}
 
@@ -2567,7 +2630,787 @@ def rl_phase(batches):
                             "bn_stats": stats}}
 
 
-def main():
+# -- phase 21 -----------------------------------------------------------------
+SERVE_THREADS = 8
+LSB = 1.0 + 1e-3                 # images: within one 8-bit level
+
+
+def same_results(name, got, want, lsb=LSB):
+    """Fail unless two lists of EditResults give the same ops, params
+    within 1e-4 (rounded to 4 places) and images within `lsb` levels;
+    the largest image gap in levels."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g is None or w is None:
+            fail(f"{name}: request {i} got no result")
+        if g.ops != w.ops or len(g.params) != len(w.params) or any(
+                np.abs(np.array(pg) - np.array(pw)).max() > 1e-4 + 1e-6
+                for pg, pw in zip(g.params, w.params) if pg):
+            fail(f"{name}: request {i} decoded {g.ops} {g.params}, want "
+                 f"{w.ops} {w.params}")
+        if g.image.shape != w.image.shape:
+            fail(f"{name}: request {i} image {g.image.shape}, want "
+                 f"{w.image.shape}")
+        worst = max(worst, float(np.abs(g.image - w.image).max()) * 255)
+    if len(got) != len(want) or not worst <= lsb:
+        fail(f"{name}: {len(got)} results against {len(want)}, images "
+             f"{worst:.3f} levels apart")
+    return worst
+
+
+def submit_all(engine, imgs, reqs, threads=SERVE_THREADS):
+    """Submit the requests from `threads` threads (request i from thread
+    i % threads); returns the handles in request order once all are
+    done, and the host seconds from the first submit to the last done."""
+    import threading
+
+    pending = [None] * len(imgs)
+
+    def client(k):
+        for i in range(k, len(imgs), threads):
+            pending[i] = engine.submit(imgs[i], reqs[i])
+
+    workers = [threading.Thread(target=client, args=(k,))
+               for k in range(threads)]
+    t0 = time.perf_counter()
+    for t in workers:
+        t.start()
+    for t in workers:
+        t.join(timeout=120)
+    if any(t.is_alive() for t in workers) or any(p is None for p in pending):
+        fail("a client thread did not submit its requests")
+    for p in pending:
+        if not p.done.wait(timeout=120):
+            fail("the batcher left a request unserved for 120 s")
+    return pending, time.perf_counter() - t0
+
+
+def serve_pipeline_phase():
+    """The phase 7 actor behind ServingEngine and a MicroBatcher
+    (linger 10 ms, pipeline depth 2): 8 threads submit 64 requests over
+    two buckets; the results equal edit_batch's, B1 launches equal the
+    micro-batches; the bank executor (use_pallas=False) and decode_native
+    engines against the kernel's; device_compute_probe(512); req/s through
+    the batcher beside edit_batch's, launch_s and sync_s; one micro-batch's
+    device ms and the card's idle share (torch.profiler); a failing flush
+    and a failing launch mark their requests and the batcher serves on."""
+    from t2onet_tpu_torch.serve import MicroBatcher
+
+    vocab = make_vocab()
+    actor = knots_near_one(Actor(ModelConfig(), OperatorConfig(), len(vocab),
+                                 generator=torch.Generator().manual_seed(0)))
+    kw = dict(decode_size=128, max_batch=8, u8_wire=True,
+              encoder_max_len=ModelConfig().encoder_max_len)
+    engine = ServingEngine(actor, vocab, device="cuda", **kw)
+    engine.warmup(buckets=[(512, 512), (384, 640)])
+    imgs = make_images(48, 512, 512, seed=21) + make_images(16, 384, 640, 22)
+    reqs = [TEXTS[i % len(TEXTS)] for i in range(len(imgs))]
+    want = engine.edit_batch(imgs, reqs)
+
+    def rate_edit_batch():
+        st0 = engine.stats_snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.edit_batch(imgs, reqs)
+        dt = time.perf_counter() - t0
+        st1 = engine.stats_snapshot()
+        return (len(imgs) / dt, st1["launch_s"] - st0["launch_s"],
+                st1["sync_s"] - st0["sync_s"])
+
+    def rate_batcher(count):
+        batcher = MicroBatcher(engine, linger_ms=10, pipeline_depth=2).start()
+        st0 = engine.stats_snapshot()
+        if count:
+            reset_launches()
+        try:
+            pending, dt = submit_all(engine, imgs, reqs)
+        finally:
+            batcher.stop()
+        launches = dict(chain.LAUNCHES)
+        st1 = engine.stats_snapshot()
+        batches = st1["batches"] - st0["batches"]
+        return (pending, len(imgs) / dt, st1["launch_s"] - st0["launch_s"],
+                st1["sync_s"] - st0["sync_s"], batches, launches)
+
+    pending, b_rate, b_launch, b_sync, batches, launches = rate_batcher(True)
+    log(f"serve pipeline: {len(imgs)} requests from {SERVE_THREADS} threads "
+        f"through MicroBatcher(linger 10 ms, depth 2) in {batches} "
+        f"micro-batches; launches {launches}")
+    if launches["chain"] != batches or batches < len(imgs) // 8 or any(
+            v for k, v in launches.items() if k != "chain"):
+        fail(f"the batcher's run launched {launches} over {batches} "
+             f"micro-batches: want one chain kernel per micro-batch")
+    errs = [p.error for p in pending if p.error is not None]
+    if errs:
+        fail(f"the batcher failed requests: {errs[:2]}")
+    worst = same_results("batcher vs edit_batch", [p.result for p in pending],
+                         want)
+    log(f"  batcher results against edit_batch's: same programs, params "
+        f"within 1e-4, images within {worst:.3f} levels")
+    rates = {"batcher": [b_rate], "edit_batch": []}
+    split = {"batcher": [(b_launch, b_sync)], "edit_batch": []}
+    for _ in range(2):                  # in turns: edit_batch, batcher
+        r, ls, ss = rate_edit_batch()
+        rates["edit_batch"].append(r)
+        split["edit_batch"].append((ls, ss))
+        _, r, ls, ss, _, _ = rate_batcher(False)
+        rates["batcher"].append(r)
+        split["batcher"].append((ls, ss))
+    log(f"  req/s over {len(imgs)} requests (48 at 512x512, 16 at 384x640; "
+        f"host clock): batcher {[round(r, 2) for r in rates['batcher']]}, "
+        f"edit_batch {[round(r, 2) for r in rates['edit_batch']]}; "
+        f"(launch_s, sync_s) batcher "
+        f"{[(round(a, 3), round(b, 3)) for a, b in split['batcher']]}, "
+        f"edit_batch "
+        f"{[(round(a, 3), round(b, 3)) for a, b in split['edit_batch']]}")
+
+    # the bank executor and decode_native against the kernel engine
+    sub, sub_reqs = imgs[:8] + imgs[48:56], reqs[:8] + reqs[48:56]
+    bank_eng = ServingEngine(actor, vocab, device="cuda", use_pallas=False,
+                             **kw)
+    gap_bank = same_results("use_pallas=False vs the kernel",
+                            bank_eng.edit_batch(sub, sub_reqs),
+                            [want[i] for i in list(range(8))
+                             + list(range(48, 56))])
+    native = ServingEngine(actor, vocab, device="cuda", decode_native=True,
+                           **kw)
+    native_bank = ServingEngine(actor, vocab, device="cuda",
+                                decode_native=True, use_pallas=False, **kw)
+    nat = native.edit_batch(sub, sub_reqs)
+    gap_native = same_results("decode_native: use_pallas=False vs the "
+                              "kernel", native_bank.edit_batch(sub, sub_reqs),
+                              nat)
+    log(f"  use_pallas=False against the kernel engine (16 requests, both "
+        f"buckets): same programs, images within {gap_bank:.3f} levels; "
+        f"decode_native the same way: within {gap_native:.3f} levels; "
+        f"decode_native programs {[r.ops for r in nat[:2]]}, the probe's "
+        f"{[r.ops for r in want[:2]]}")
+
+    engine.warmup(buckets=[(512, 512)])
+    probe = engine.device_compute_probe(512)
+    log(f"  device_compute_probe(512): {probe}")
+    one_imgs, one_reqs = imgs[:8], reqs[:8]
+
+    def one():
+        engine.edit_batch(one_imgs, one_reqs)
+
+    wall = statistics.median(timed(one, n=10, warmup=2))
+    prof = profiled_us(one, calls=3)
+    dev_ms = prof["all"] / 1e3
+    log(f"  one b8 512x512 micro-batch through edit_batch: {wall:.2f} ms host "
+        f"clock (median of 10), {dev_ms:.2f} ms of device work in "
+        f"{prof['count']:.0f} operations (torch.profiler): the card idle "
+        f"{1 - dev_ms / wall:.1%}")
+
+    # failures: a flush whose batch raises; a launch that raises once
+    def boom(pending):
+        raise RuntimeError("injected failure")
+
+    engine._process = boom
+    bad = engine.submit(imgs[0], reqs[0])
+    if engine.flush() != 1 or not bad.done.is_set() or bad.result is not None \
+            or not isinstance(bad.error, RuntimeError):
+        fail("a failed flush did not mark its request")
+    del engine._process
+    calls = []
+    real_launch = engine.launch
+
+    def launch_once_failing(todo):
+        calls.append(len(todo))
+        if len(calls) == 1:
+            raise RuntimeError("injected failure")
+        return real_launch(todo)
+
+    engine.launch = launch_once_failing
+    batcher = MicroBatcher(engine, linger_ms=10, pipeline_depth=2).start()
+    try:
+        first = engine.submit(imgs[0], reqs[0])
+        first.done.wait(timeout=120)
+        later, _ = submit_all(engine, imgs[:16], reqs[:16])
+    finally:
+        batcher.stop()
+        del engine.launch
+    if not isinstance(first.error, RuntimeError) or any(
+            p.error is not None for p in later):
+        fail(f"the batcher did not survive a failed launch: {first.error}, "
+             f"{[p.error for p in later if p.error is not None][:2]}")
+    same_results("batcher after a failure", [p.result for p in later],
+                 want[:16])
+    log("  a failed flush and a failed launch marked their requests with "
+        ".error; the batcher then served 16 more requests as edit_batch")
+    return {"launches": launches, "micro_batches": batches,
+            "req_s_batcher": rates["batcher"],
+            "req_s_edit_batch": rates["edit_batch"],
+            "launch_sync_s_batcher": split["batcher"],
+            "launch_sync_s_edit_batch": split["edit_batch"],
+            "device_compute_probe": probe, "micro_batch_ms": wall,
+            "micro_batch_device_ms": dev_ms,
+            "micro_batch_idle": 1 - dev_ms / wall,
+            "bank_levels": gap_bank, "native_bank_levels": gap_native}
+
+
+# -- phase 22 -----------------------------------------------------------------
+SERVE_RUN_DIR = os.path.join("output", "chip_smoke_serve")
+SERVE_ARGV = ["--device", "cuda", "--synthetic", "--run_dir", SERVE_RUN_DIR]
+HTTP_CLIENTS = 16
+
+
+def http_phase():
+    """`cli.serve`'s engine and server on 127.0.0.1 behind its batcher:
+    16 concurrent POST /edit with 512 px PNGs, each 200 with a PNG of the
+    input's shape, /healthz counting them, 404 and 400; then
+    `cli.serve --bench 64 --img_size 512` and its JSON line."""
+    import base64
+    import contextlib
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from PIL import Image
+
+    from t2onet_tpu_torch.cli import serve as serve_cli
+
+    shutil.rmtree(SERVE_RUN_DIR, ignore_errors=True)
+    a = serve_cli.build_parser().parse_args(SERVE_ARGV)
+    engine = serve_cli.build_engine(a)
+    engine.warmup(buckets=[(512, 512)])
+    server, batcher = serve_cli.make_server(engine, 0, a.linger_ms,
+                                            a.pipeline_depth)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def call(path, body=None):
+        req = urllib.request.Request(base + path, data=body,
+                                     method="GET" if body is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    imgs = make_images(HTTP_CLIENTS, 512, 512, seed=23)
+    bodies = []
+    for i, im in enumerate(imgs):
+        buf = io.BytesIO()
+        Image.fromarray((im.transpose(1, 2, 0) * 255).astype(np.uint8)).save(
+            buf, format="PNG")
+        bodies.append(json.dumps({"request": TEXTS[i % len(TEXTS)],
+                                  "image_b64": base64.b64encode(
+                                      buf.getvalue()).decode()}).encode())
+    replies = [None] * HTTP_CLIENTS
+    st0 = engine.stats_snapshot()
+    reset_launches()
+    try:
+        def client(i):
+            replies[i] = call("/edit", bodies[i])
+
+        workers = [threading.Thread(target=client, args=(i,))
+                   for i in range(HTTP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=180)
+        wall = time.perf_counter() - t0
+        launches = dict(chain.LAUNCHES)
+        health = call("/healthz")
+        codes = (call("/nope")[0], call("/edit", b"not json")[0])
+    finally:
+        server.shutdown()
+        batcher.stop()
+        server.server_close()
+        thread.join(timeout=30)
+    st1 = engine.stats_snapshot()
+    batches = st1["batches"] - st0["batches"]
+    shapes = []
+    for i, rep in enumerate(replies):
+        if rep is None or rep[0] != 200:
+            fail(f"POST /edit {i} answered {rep}")
+        png = Image.open(io.BytesIO(base64.b64decode(rep[1]["image_b64"])))
+        shapes.append(png.size)
+        if png.size != (512, 512) or any(op not in OP_NAMES
+                                         for op in rep[1]["ops"]):
+            fail(f"POST /edit {i}: a {png.size} PNG, ops {rep[1]['ops']}")
+    log(f"http: {HTTP_CLIENTS} concurrent POST /edit (512 px PNGs) in "
+        f"{wall:.3f} s, all 200 with 512x512 PNGs; {batches} micro-batches, "
+        f"launches {launches}; /healthz {health}; /nope and a bad body "
+        f"answered {codes}")
+    if health[0] != 200 or health[1]["stats"]["requests"] \
+            - st0["requests"] != HTTP_CLIENTS or codes != (404, 400):
+        fail(f"/healthz {health} or the error codes {codes} are wrong")
+    if launches["chain"] != batches or any(v for k, v in launches.items()
+                                           if k != "chain"):
+        fail(f"the HTTP run launched {launches} over {batches} micro-batches")
+    if thread.is_alive():
+        fail("the HTTP server thread did not stop")
+    del engine
+
+    out = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(out):
+        engine = serve_cli.main(SERVE_ARGV + ["--bench", "64", "--img_size",
+                                              "512"])
+    bench_launches = dict(chain.LAUNCHES)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"cli.serve --bench 64 --img_size 512: {json.dumps(line)}")
+    # the warm-up and the 64 requests, then device_compute_probe: one warm
+    # call and 3 x 10 timed ones
+    want = engine.stats["batches"] + 31
+    log(f"  launches {bench_launches}, want chain = {want} (micro-batches "
+        f"and the probe's 31 calls)")
+    if bench_launches["chain"] != want or line["value"] <= 0:
+        fail(f"cli.serve --bench launched {bench_launches}, want chain = "
+             f"{want}")
+    return {"launches": launches, "micro_batches": batches, "wall_s": wall,
+            "bench": line, "bench_launches": bench_launches}
+
+
+# -- phase 23 -----------------------------------------------------------------
+INPAINT_RUN_DIR = os.path.join("output", "chip_smoke_inpaint")
+INPAINT_CKPT = os.path.join(INPAINT_RUN_DIR, "inpaint_model")
+INPAINT_ITERS = 300
+INPAINT_ARGV = ["--device", "cuda", "--data_dir", "data_real_h2h",
+                "--act_dir", FIVEK_ACTS, "--glove_path", FIVEK_GLOVE_NPY,
+                "--num_iters", str(INPAINT_ITERS),
+                "--print_every", "25", "--run_dir", INPAINT_RUN_DIR]
+EDGECONNECT_DIR = os.path.join("output", "chip_smoke_edgeconnect")
+# one step's gradients: the card's sit ~2.2e-7 of their norm from the
+# CPU's f64 ones and the CPU's f32 ones ~1.2e-4 (oneDNN rounds more), so
+# the card is held to f64 between its reading and TF32's ~1e-3, and to
+# the CPU's f32 just above the CPU's own rounding
+INPAINT_LOSS_RTOL = 1e-5
+INPAINT_GRAD_F64_RTOL = 1e-5
+INPAINT_GRAD_RTOL = 5e-4
+EDGECONNECT_ATOL = 1e-4
+
+
+def random_edgeconnect_sd(rng, cin, cout, spectral):
+    """A random EdgeConnect generator checkpoint in the published layout
+    ({'iteration', 'generator'}; 64-channel stem, 8 residual blocks), with
+    spectral norm as torch stores it: weight_orig, and u and v, the
+    leading singular vectors of the weight flattened over its output
+    channels (dim 0 of a conv, dim 1 of a ConvTranspose2d)."""
+    sd = {}
+
+    def add(name, w, transpose=False):
+        w = torch.from_numpy(w)
+        n_out = w.shape[1] if transpose else w.shape[0]
+        if spectral:
+            wm = (w.transpose(0, 1) if transpose else w).reshape(n_out, -1)
+            u, _, vh = torch.linalg.svd(wm, full_matrices=False)
+            sd[f"{name}.weight_orig"] = w
+            sd[f"{name}.weight_u"] = u[:, 0].contiguous()
+            sd[f"{name}.weight_v"] = vh[0].contiguous()
+        else:
+            sd[f"{name}.weight"] = w
+        sd[f"{name}.bias"] = torch.from_numpy(
+            rng.standard_normal(n_out).astype(np.float32) * 0.05)
+
+    def conv(name, ci, co, k):
+        add(name, rng.standard_normal((co, ci, k, k)).astype(np.float32)
+            * 0.08)
+
+    conv("encoder.1", cin, 64, 7)
+    conv("encoder.4", 64, 128, 4)
+    conv("encoder.7", 128, 256, 4)
+    for i in range(8):
+        conv(f"middle.{i}.conv_block.1", 256, 256, 3)
+        conv(f"middle.{i}.conv_block.5", 256, 256, 3)
+    for name, ci, co in (("decoder.0", 256, 128), ("decoder.3", 128, 64)):
+        add(name, rng.standard_normal((ci, co, 4, 4)).astype(np.float32)
+            * 0.08, transpose=True)
+    conv("decoder.7", 64, cout, 7)
+    return {"iteration": 0, "generator": sd}
+
+
+def inpaint_phase():
+    """`cli.train_inpaint` on data_real_h2h with the CLI's defaults
+    (InpaintNet features 32, batch 16, 128 px, lr 2e-4) for 300
+    iterations: finite falling loss, a checkpoint, the held-out hole L1
+    below the blanked one; the train step's time; one step on the card
+    against the CPU from the same weights; the full-width EdgeConnect
+    generators from random state_dicts at 256², card against CPU."""
+    from t2onet_tpu_torch.cli import train_inpaint
+    from t2onet_tpu_torch.models import edgeconnect, inpaint
+
+    shutil.rmtree(INPAINT_RUN_DIR, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    net, held = train_inpaint.main(INPAINT_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [v for _, _, v in logged_losses(
+        os.path.join(INPAINT_RUN_DIR, "inpaint.jsonl"), ("inpaint_loss",))]
+    log(f"train_inpaint: {INPAINT_ITERS} iterations on data_real_h2h in "
+        f"{wall:.2f} s (host clock, data, checkpoint and the held-out "
+        f"evaluation at 600x600 included); logged losses "
+        f"{[round(v, 4) for v in losses]}; held-out {held}; launches "
+        f"{dict(chain.LAUNCHES)}")
+    if not losses or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"the filler's loss is not finite and falling: {losses}")
+    if not held["hole_l1"] < held["hole_l1_blank"]:
+        fail(f"the filler does not beat the blanked hole: {held}")
+    if not os.path.exists(os.path.join(INPAINT_CKPT, "params.pt")):
+        fail("train_inpaint wrote no checkpoint")
+    if any(chain.LAUNCHES.values()):
+        fail("train_inpaint launched a chain or step kernel")
+
+    # the train step's time, and one step card against CPU
+    a = train_inpaint.build_parser().parse_args(INPAINT_ARGV)
+    ds = common.build_dataset_and_vocab(a, "train")[0]
+    img_np = next(ds.batches(a.batch_size, 1, shuffle=False))["img_x"]
+    mask_np = inpaint.random_freeform_masks(np.random.default_rng(5),
+                                            *img_np.shape[:1],
+                                            *img_np.shape[2:])
+    img, mask = to_card(np.asarray(img_np, np.float32), mask_np)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(23)
+        fresh = inpaint.InpaintNet(features=a.features)
+    nets = {"card": copy.deepcopy(fresh).cuda(), "cpu": copy.deepcopy(fresh)}
+    steps = {k: inpaint.make_train_step(n, torch.optim.Adam(
+        n.parameters(), lr=a.learning_rate)) for k, n in nets.items()}
+    step_ms = statistics.median(timed(lambda: steps["card"](img, mask)))
+    prof = profiled_us(lambda: steps["card"](img, mask))
+    # the step's gradients on the card, on the CPU and on the CPU in f64
+    nets = {"card": copy.deepcopy(fresh).cuda(), "cpu": copy.deepcopy(fresh),
+            "f64": copy.deepcopy(fresh).double()}
+    loss, grads = {}, {}
+    for k, n in nets.items():
+        x, m = ((img, mask) if k == "card" else
+                (img.cpu(), mask.cpu()) if k == "cpu" else
+                (img.cpu().double(), mask.cpu().double()))
+        n.train()
+        out = inpaint.inpaint_loss(n(x, m), x, m)
+        out.backward()
+        loss[k] = float(out.detach())
+        grads[k] = [(name, p.grad.double().cpu())
+                    for name, p in n.named_parameters()]
+
+    def gap(a, b):
+        """||a - b|| / ||b|| over all gradients, and the worst tensor's
+        gap over 5e-2 of its own norm plus 1e-6 of the whole (phase 9's)"""
+        total = math.sqrt(sum(float((gb * gb).sum()) for _, gb in grads[b]))
+        rel = math.sqrt(sum(float(((ga - gb) ** 2).sum()) for (_, ga), (
+            _, gb) in zip(grads[a], grads[b]))) / total
+        per = max(float((ga - gb).norm()) / (0.05 * float(gb.norm())
+                                             + 1e-6 * total)
+                  for (_, ga), (_, gb) in zip(grads[a], grads[b]))
+        return rel, per
+
+    rel = gap("card", "cpu")[0]
+    card64, per = gap("card", "f64")
+    cpu64 = gap("cpu", "f64")[0]
+    log(f"  InpaintNet train step (b{a.batch_size} x {a.img_size}², features "
+        f"{a.features}, Adam): {step_ms:.2f} ms host clock (median of 6), "
+        f"{prof['all'] / 1e3:.2f} ms of device work in {prof['count']:.0f} "
+        f"operations; card vs CPU from the same weights: loss "
+        f"{loss['card']:.8f} vs {loss['cpu']:.8f} (f64 {loss['f64']:.8f}); "
+        f"against the CPU's f64 gradients: card {card64:.2e} of their norm "
+        f"(worst tensor {per:.3f} of its bound), CPU f32 {cpu64:.2e}; card "
+        f"against CPU f32 {rel:.2e} (bounds: loss {INPAINT_LOSS_RTOL} "
+        f"relative, card vs f64 {INPAINT_GRAD_F64_RTOL}, card vs CPU f32 "
+        f"{INPAINT_GRAD_RTOL})")
+    if abs(loss["card"] - loss["cpu"]) > INPAINT_LOSS_RTOL * abs(loss["cpu"]) \
+            or not card64 <= INPAINT_GRAD_F64_RTOL or not per <= 1.0 \
+            or not rel <= INPAINT_GRAD_RTOL:
+        fail("the card's InpaintNet step disagrees with the CPU's")
+
+    # EdgeConnect's generators at full width, 256 x 256, card vs CPU
+    os.makedirs(EDGECONNECT_DIR, exist_ok=True)
+    rng = np.random.default_rng(23)
+    gaps, times = {}, {}
+    for kind, fname, cin, cout in (
+            ("edge", "EdgeModel_gen.pth", 3, 1),
+            ("inpaint", "InpaintingModel_gen.pth", 4, 3)):
+        sd = random_edgeconnect_sd(rng, cin, cout, spectral=kind == "edge")
+        torch.save(sd, os.path.join(EDGECONNECT_DIR, fname))
+        x = torch.from_numpy(rng.uniform(0, 1, (1, cin, 256, 256))
+                             .astype(np.float32))
+        card = edgeconnect.load_generator(sd, kind, "cuda")
+        cpu = edgeconnect.load_generator(sd, kind, "cpu")
+        with torch.no_grad():
+            got = card(x.cuda()).cpu()
+            want = cpu(x)
+
+            def fwd(card=card, x=x.cuda()):
+                with torch.no_grad():
+                    card(x)
+
+            times[kind] = statistics.median(timed(fwd, n=5))
+        gaps[kind] = float((got - want).abs().max())
+    log(f"  EdgeConnect generators (64-channel stem, 8 residual blocks, "
+        f"b1 x 256²): card vs CPU max abs gap {gaps} (bound "
+        f"{EDGECONNECT_ATOL}); forward {times} ms (host clock, median of 5)")
+    if not all(g <= EDGECONNECT_ATOL for g in gaps.values()):
+        fail(f"the card's EdgeConnect generators disagree with the CPU's: "
+             f"{gaps}")
+    return {"launches": dict(chain.LAUNCHES), "wall_s": wall,
+            "losses": losses, "held_out": held, "step_ms": step_ms,
+            "step_device_ms": prof["all"] / 1e3,
+            "card_vs_cpu": {"loss_card": loss["card"], "loss_cpu": loss["cpu"],
+                            "grad_rel": rel, "worst_tensor": per,
+                            "card_vs_f64": card64, "cpu_vs_f64": cpu64},
+            "edgeconnect_gap": gaps, "edgeconnect_ms": times}
+
+
+# -- phase 24 -----------------------------------------------------------------
+DEMO_DIR = os.path.join("output", "chip_smoke_demo")
+DEMO_ARGV = ["--data_dir", "data_real_h2h", "--glove_path", FIVEK_GLOVE_NPY,
+             "--run_dir", os.path.join("output", "chip_smoke_eval"),
+             "--img", FIVEK_TEST_IMAGE, "--request",
+             "increase the brightness and the contrast"]
+PROGRAM = [["brightness", [0.2]], ["inpaint", []], ["sharpness", [0.3]]]
+PROGRAM_SIZE = 256                 # --short_size of the program runs
+# the first shapeAlign train pairs that carry an inpaint mask, planned at
+# phase 15's size (the filler's training size); the CPU replans two
+PLAN_INPAINT_PAIRS = (9, 10, 12, 13)
+PLAN_INPAINT_CPU_PAIRS = (9, 12)
+PLAN_INPAINT_SIZE = 128
+FILL_ATOL = 1e-4                   # a filler call's output, card vs CPU
+
+
+def jpeg_levels(a, b):
+    import cv2
+
+    x, y = cv2.imread(a), cv2.imread(b)
+    if x is None or y is None or x.shape != y.shape:
+        fail(f"{a} or {b} is missing or of another shape")
+    return int(np.abs(x.astype(np.int32) - y.astype(np.int32)).max())
+
+
+def demo_outputs(n_steps):
+    return ["input.jpg", "output.jpg"] + [f"step{i}.jpg"
+                                          for i in range(n_steps)]
+
+
+def demo_levels(written, d, n_steps):
+    """(largest gap between the card's and the CPU's 8-bit images as the
+    demo hands them to the JPEG encoder, largest gap between the decoded
+    JPEGs) over the demo's files in d/cuda and d/cpu. JPEG's quantization
+    turns a one-level difference into several levels of its 8 x 8
+    block, so the decoded gap is printed, not bounded."""
+    raw = dec = 0
+    for f in demo_outputs(n_steps):
+        x, y = (written[os.path.join(d, dev, f)] for dev in ("cuda", "cpu"))
+        raw = max(raw, int(np.abs(x.astype(np.int32) - y).max()))
+        dec = max(dec, jpeg_levels(os.path.join(d, "cuda", f),
+                                   os.path.join(d, "cpu", f)))
+    return raw, dec
+
+
+def demo_plan_phase():
+    """`cli.demo` decode mode on a real FiveK test image from phase 12's
+    checkpoint (B1 once per rollout step at b1 x 600², card against CPU);
+    `--program` with a mask and each filler (phase 23's InpaintNet and
+    EdgeConnect dir), card against CPU within one level of the 8-bit
+    images the demo writes; `cli.plan_gier --inpaint_ckpt` on the 4 first
+    shapeAlign train pairs with an inpaint mask at 128 px, each filler
+    call of the card's search held to the CPU's filler on its input, and
+    2 pairs' plans held to the CPU's as phase 15 holds plans."""
+    from PIL import Image
+
+    from t2onet_tpu_torch.cli import demo, plan_gier
+
+    shutil.rmtree(DEMO_DIR, ignore_errors=True)
+    out = {}
+    runs = {}
+    written = {}
+    save = demo.save_img
+
+    def keep(img, path):
+        """save_img, keeping the 8-bit image it encodes"""
+        written[path] = (np.clip(np.asarray(img), 0, 1) * 255).astype(
+            np.uint8)
+        save(img, path)
+
+    demo.save_img = keep
+    try:
+        for dev in ("cuda", "cpu"):
+            reset_launches()
+            t0 = time.perf_counter()
+            runs[dev] = demo.main(DEMO_ARGV + ["--device", dev, "--out_dir",
+                                               os.path.join(DEMO_DIR, dev)])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                out["demo_s"] = time.perf_counter() - t0
+                out["launches"] = dict(chain.LAUNCHES)
+        steps = len(os.listdir(os.path.join(DEMO_DIR, "cuda"))) - 3
+        want = ModelConfig().decoder_max_len
+        log(f"demo: {json.dumps(runs['cuda'])} in {out['demo_s']:.2f} s "
+            f"(host clock, set-up included); launches {out['launches']}, "
+            f"want chain = {want} (one per rollout step); CPU "
+            f"{json.dumps(runs['cpu'])}")
+        if out["launches"]["chain"] != want or any(
+                v for k, v in out["launches"].items() if k != "chain"):
+            fail(f"the demo launched {out['launches']}: want {want} chain")
+        if [s["op"] for s in runs["cuda"]] != [s["op"] for s in runs["cpu"]] \
+                or any(np.abs(np.array(g["params"]) - np.array(c["params"]))
+                       .max(initial=0) > 1e-4 + 1e-6
+                       for g, c in zip(runs["cuda"], runs["cpu"])):
+            fail("the card's demo program differs from the CPU's")
+        raw, dec = demo_levels(written, DEMO_DIR, steps)
+        out["demo_levels"] = raw
+        log(f"  card vs CPU: the same program, 8-bit images within {raw} "
+            f"levels (decoded JPEGs {dec})")
+        if raw > 1:
+            fail(f"the demo's card and CPU images are {raw} levels apart")
+
+        # --program with a mask and each filler, card against CPU
+        mask = np.zeros((PROGRAM_SIZE, PROGRAM_SIZE), np.uint8)
+        mask[64:160, 80:200] = 255
+        mask_path = os.path.join(DEMO_DIR, "mask.png")
+        Image.fromarray(mask).save(mask_path)
+        prog = DEMO_ARGV + ["--short_size", str(PROGRAM_SIZE), "--program",
+                            json.dumps(PROGRAM), "--mask", mask_path]
+        out["program_levels"] = {}
+        for name, flag in (("inpaint_ckpt", ["--inpaint_ckpt",
+                                             INPAINT_CKPT]),
+                           ("edgeconnect", ["--edgeconnect_dir",
+                                            EDGECONNECT_DIR])):
+            for dev in ("cuda", "cpu"):
+                reset_launches()
+                demo.main(prog + flag + ["--device", dev, "--out_dir",
+                                         os.path.join(DEMO_DIR, name, dev)])
+                if any(chain.LAUNCHES.values()):
+                    fail(f"--program launched {dict(chain.LAUNCHES)}")
+            d = os.path.join(DEMO_DIR, name)
+            raw, dec = demo_levels(written, d, len(PROGRAM))
+            hole = [written[os.path.join(d, "cuda", f"step{i}.jpg")]
+                    [:, 64:160, 80:200].astype(np.float32) for i in (0, 1)]
+            changed = float(np.abs(hole[1] - hole[0]).max())
+            out["program_levels"][name] = raw
+            log(f"  demo --program {json.dumps(PROGRAM)} --mask, {name} "
+                f"filler at {PROGRAM_SIZE}²: card vs CPU 8-bit images within "
+                f"{raw} levels (decoded JPEGs {dec}); the fill moved the hole "
+                f"by up to {changed:.0f} levels")
+            if raw > 1 or changed < 1.0:
+                fail(f"demo --program with the {name} filler: {raw} levels "
+                     f"card vs CPU, hole moved {changed}")
+    finally:
+        demo.save_img = save
+
+    # the GIER planner with the trained filler: every filler call of the
+    # card's search again on the CPU from the same input, and two pairs
+    # planned on the CPU, card against CPU
+    from t2onet_tpu_torch.models import inpaint
+
+    base = ["--data_dir", "data_real_gier", "--data_mode", "shapeAlign",
+            "--img_size", str(PLAN_INPAINT_SIZE), "--manual_seed", "10",
+            "--inpaint_ckpt", INPAINT_CKPT, "--limit", "1"]
+    dirs = {dev: os.path.join(DEMO_DIR, f"plan_{dev}")
+            for dev in ("cuda", "cpu")}
+    calls = []                         # (mask, filler input, output)
+    factory = plan_gier.filler_factory
+
+    def recording(a, device):
+        make = factory(a, device)
+
+        def make_fn(mask):
+            fn = make(mask)
+
+            def fn_kept(img):
+                res = fn(img)
+                calls.append((mask, img.cpu().numpy(), res.cpu().numpy()))
+                return res
+            return fn_kept
+        return make_fn
+
+    out["plan_s"] = {}
+    for dev, pairs in (("cuda", PLAN_INPAINT_PAIRS),
+                       ("cpu", PLAN_INPAINT_CPU_PAIRS)):
+        reset_launches()
+        plan_gier.filler_factory = recording if dev == "cuda" else factory
+        try:
+            t0 = time.perf_counter()
+            n = sum(plan_gier.main(base + ["--device", dev, "--start", str(i),
+                                           "--out_dir", dirs[dev]])
+                    for i in pairs)
+            out["plan_s"][dev] = time.perf_counter() - t0
+        finally:
+            plan_gier.filler_factory = factory
+        if dev == "cuda":
+            out["plan_launches"] = dict(chain.LAUNCHES)
+        if n != len(pairs):
+            fail(f"plan_gier --inpaint_ckpt planned {n} pairs on {dev}, "
+                 f"not {len(pairs)}")
+    net = inpaint.load_inpaint(INPAINT_CKPT, "cpu")
+    fill_max = fill_mean = 0.0
+    with torch.no_grad():
+        for mask, x, got in calls:
+            want = inpaint.make_inpaint_fn(net, mask[None])(
+                torch.from_numpy(x)).numpy()
+            gap = np.abs(got - want)
+            fill_max = max(fill_max, float(gap.max()))
+            fill_mean = max(fill_mean, float(gap.mean(axis=(1, 2, 3)).max()))
+    in_top = in_beams = 0
+    for d in os.listdir(dirs["cuda"]):
+        with open(os.path.join(dirs["cuda"], d, "acts.json")) as f:
+            beams = json.load(f)["operation sequence"]
+        in_top += sum(s[0] == "inpaint" for s in beams[0])
+        in_beams += sum(s[0] == "inpaint" for b in beams for s in b)
+    log(f"plan_gier --inpaint_ckpt on {len(PLAN_INPAINT_PAIRS)} GIER pairs "
+        f"with an inpaint mask at {PLAN_INPAINT_SIZE} px: card "
+        f"{out['plan_s']['cuda']:.2f} s, CPU {out['plan_s']['cpu']:.2f} s "
+        f"for {len(PLAN_INPAINT_CPU_PAIRS)} of them (host clock); launches "
+        f"{out['plan_launches']}; inpaint steps in the card's top beams "
+        f"{in_top}, in all its beams {in_beams}; {len(calls)} filler calls "
+        f"({sum(len(c[1]) for c in calls)} images) again on the CPU from the "
+        f"same inputs: max abs gap {fill_max:.3e} (bound {FILL_ATOL}), the "
+        f"worst image's mean abs gap, which bounds its distance's gap, "
+        f"{fill_mean:.3e}")
+    if any(out["plan_launches"].values()):
+        fail(f"the planner launched {out['plan_launches']}")
+    if not calls or not fill_max <= FILL_ATOL:
+        fail(f"the card's filler in the planner: {len(calls)} calls, "
+             f"{fill_max} from the CPU's")
+    out["plan"] = compare_plans("plan_gier --inpaint_ckpt", [
+        (d, os.path.join(dirs["cuda"], d), os.path.join(dirs["cpu"], d),
+         "acts.json") for d in sorted(os.listdir(dirs["cpu"]))],
+        against="the CPU's plans")
+    out.update(plan_inpaint_steps=in_top, plan_inpaint_in_beams=in_beams,
+               filler_calls=len(calls), filler_max_abs=fill_max,
+               filler_mean_abs=fill_mean)
+    return out
+
+
+PHASES = {"4b": eval_chain_phase, "serve_pipeline": serve_pipeline_phase,
+          "http": http_phase, "inpaint": inpaint_phase,
+          "demo_plan": demo_plan_phase}
+
+
+def run_phases(names):
+    """The named phases alone, in PHASES' order, after phases 1-3; their
+    results as one JSON line, then the card's name and power limit."""
+    unknown = set(names) - set(PHASES)
+    if unknown:
+        fail(f"unknown phases {sorted(unknown)}: want some of {list(PHASES)}")
+    smi = device_phase()
+    build_phase()
+    host_packages_phase()
+    if "demo_plan" in names:
+        from t2onet_tpu_torch.cli import test_fivek
+
+        write_eval_checkpoint(test_fivek, FIVEK_EVAL_ARGV)
+    res = {}
+    for name, fn in PHASES.items():
+        if name in names:
+            t0 = time.perf_counter()
+            res[name] = fn()
+            res[name + "_s"] = time.perf_counter() - t0
+            log(f"phase {name}: {res[name + '_s']:.1f} s")
+    print(json.dumps(res, default=str))
+    print(smi)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv:
+        if len(argv) != 2 or argv[0] != "--phases":
+            fail(f"usage: chip_smoke.py [--phases {','.join(PHASES)}]")
+        return run_phases(argv[1].split(","))
     smi = device_phase()
     build_phase()
     host_packages_phase()
@@ -2606,6 +3449,10 @@ def main():
     r50 = serve_r50_phase()
     rlr = rl_phase(mb)
     del mb
+    sp = serve_pipeline_phase()
+    hp = http_phase()
+    ip = inpaint_phase()
+    dp = demo_plan_phase()
     # the planner runs no kernel: phases 14-15 checked that every count
     # stayed 0 (pf["launches"], pg["launches"])
     plan = {"plan_fivek": pf["launches"], "plan_gier": pg["launches"]}
@@ -2614,6 +3461,12 @@ def main():
     new = {f"mode_{name}": modes[name]["launches"] for name, _ in MODES}
     new.update(gier_modes=gm["launches"], serve_r50=r50["launches"],
                rl=rlr["launches"])
+    # this slice's paths: the batcher, HTTP, the bench CLI, the filler's
+    # trainer (no kernel), the demo's rollout, planning with the filler
+    # (no kernel)
+    new.update(serve_batcher=sp["launches"], serve_http=hp["launches"],
+               serve_bench=hp["bench_launches"], train_inpaint=ip["launches"],
+               demo=dp["launches"], plan_gier_inpaint=dp["plan_launches"])
     chain_by_path = {"serve": serve_launches,
                      "train": train_launches["chain"],
                      "gier_train": gier_launches["chain"],
@@ -2646,7 +3499,8 @@ def main():
         "eval_b1_k1_slots": ek["rows"],
         "eval_b10_600_k1_probe": ek["probe"],
         "eval_b1_640_k1_per_fivek_pair": fe["b1_per_pair"],
-        "eval_b1_640_k1_per_gier_pair": ge["b1_per_pair"]}, {
+        "eval_b1_640_k1_per_gier_pair": ge["b1_per_pair"],
+        "demo_b1_600_k1_slots": ek["demo_rows"]}, {
         "name": "chain_masked", "route": "cuda",
         "source": "t2onet_tpu_torch/csrc/chain.cu",
         "replaces": "t2onet_tpu/ops/pallas_fused.py:286",
@@ -2695,7 +3549,10 @@ def main():
         "train": t, "gier_train": gt, "fivek_eval": fe, "gier_eval": ge,
         "plan_fivek": pf, "plan_gier": pg,
         "fivek_real_train": {**rt, "card_vs_cpu": rc},
-        "modes": modes, "gier_modes": gm, "serve_r50": r50, "rl": rlr}
+        "modes": modes, "gier_modes": gm, "serve_r50": r50, "rl": rlr,
+        "serve_pipeline": sp, "serve_http": {k: v for k, v in hp.items()
+                                             if k != "bench"},
+        "serve_bench": hp["bench"], "inpaint": ip, "demo_plan": dp}
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -163,6 +163,31 @@ SYNTHETIC_ID2OP = dict(enumerate(
      "hue", "inpaint_obj", "tint", "sharpness", "color_bg"]))
 
 
+def _glove_rows(a, vocab_dir: str):
+    """The GloVe matrix from --glove_path, else from the .h5 beside the
+    vocabularies when it exists, else None."""
+    from t2onet_tpu_torch.data.text import load_embedding
+
+    glove = a.glove_path or os.path.join(
+        vocab_dir, f"{a.dataset}_vocabs_glove_feat_{a.session}.h5")
+    return load_embedding(glove) if os.path.exists(glove) else None
+
+
+def build_vocab_only(a):
+    """(vocab2id, id2op, GloVe matrix or None) without the dataset's
+    annotations or images: what a CLI that edits a user's image needs to
+    tokenize (the demo, as the JAX CLI's)."""
+    if a.synthetic:
+        from t2onet_tpu_torch.data.synthetic import synthetic_vocab
+
+        return synthetic_vocab(), dict(SYNTHETIC_ID2OP), None
+    from t2onet_tpu_torch.data.text import load_vocab
+
+    vocab_dir = os.path.join(a.data_dir, "language")
+    vocab2id, _, _, id2op = load_vocab(vocab_dir, a.dataset, a.session)
+    return vocab2id, id2op, _glove_rows(a, vocab_dir)
+
+
 def build_dataset_and_vocab(a, phase: str = "train",
                             eval_img_mode: str = "native",
                             wire_u8: bool = False):
@@ -187,7 +212,7 @@ def build_dataset_and_vocab(a, phase: str = "train",
                             req_max_len=a.encoder_max_len,
                             op_max_len=a.decoder_max_len)
         return ds, synthetic_vocab(), dict(SYNTHETIC_ID2OP), None
-    from t2onet_tpu_torch.data.text import load_embedding, load_vocab
+    from t2onet_tpu_torch.data.text import load_vocab
 
     vocab_dir = os.path.join(a.data_dir, "language")
     vocab2id, _, _, id2op = load_vocab(vocab_dir, a.dataset, a.session)
@@ -223,10 +248,7 @@ def build_dataset_and_vocab(a, phase: str = "train",
         else:
             ds = FiveK(img_dir, anno_dir, phase, a.session, a.img_size,
                        eval_img_mode=eval_img_mode, wire_dtype=wire)
-    glove = a.glove_path or os.path.join(
-        vocab_dir, f"{a.dataset}_vocabs_glove_feat_{a.session}.h5")
-    w2v = load_embedding(glove) if os.path.exists(glove) else None
-    return ds, vocab2id, id2op, w2v
+    return ds, vocab2id, id2op, _glove_rows(a, vocab_dir)
 
 
 def build_actor(a, vocab_size: int, word2vec=None):

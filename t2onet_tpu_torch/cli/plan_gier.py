@@ -9,9 +9,12 @@ and edit{k}.jpg.
       --manual_seed 10 --out_dir output/GIER_actions_set_1
 
 It runs on the card (`--device cuda`, the default) and raises where
-PyTorch finds none; `--device cpu` runs it on the CPU. A trained inpaint
-filler (`--inpaint_ckpt`, `--edgeconnect_dir`) waits for the inpaint
-port (ROADMAP A5): the parser refuses both.
+PyTorch finds none; `--device cpu` runs it on the CPU. With an inpaint
+filler (`--inpaint_ckpt`, a `cli.train_inpaint` checkpoint, or
+`--edgeconnect_dir`, EdgeConnect's generators) the inpaint candidate
+fills each pair's ground-truth object mask instead of executing as the
+identity; pairs are then planned one at a time, since the filler
+captures its pair's mask.
 """
 
 from __future__ import annotations
@@ -24,13 +27,14 @@ import time
 import numpy as np
 
 from t2onet_tpu_torch.cli import common
-from t2onet_tpu_torch.cli.plan_fivek import add_plan_args, refuse
+from t2onet_tpu_torch.cli.plan_fivek import add_plan_args
 from t2onet_tpu_torch.evals.visualize import save_img
 from t2onet_tpu_torch.planner.beam import (batch_beam_search, beam_search,
                                            init_distance)
 
 # executor indices; a vocab op id maps to one as vocab id - 3
 ALL_OPS = (0, 1, 2, 3, 4, 5, 6, 7)
+INPAINT_EXEC = 4                       # vocab inpaint_obj (7) - 3
 
 
 def plan_parser() -> argparse.ArgumentParser:
@@ -44,11 +48,49 @@ def plan_parser() -> argparse.ArgumentParser:
     p.add_argument("--out_dir", default=None)
     p.add_argument("--err", type=float, default=1e-3)
     p.add_argument("--mode", default="plain")
-    for flag in ("--inpaint_ckpt", "--edgeconnect_dir"):
-        p.add_argument(flag, action=refuse(
-            flag, "(a trained inpaint filler) waits for the inpaint port "
-                  "(ROADMAP A5)"))
+    p.add_argument("--inpaint_ckpt", default=None,
+                   help="trained filler checkpoint (cli.train_inpaint run "
+                        "dir's inpaint_model): the inpaint candidate fills "
+                        "its ground-truth mask region instead of executing "
+                        "as the identity. One pair at a time (no "
+                        "--pair_batch)")
+    p.add_argument("--edgeconnect_dir", default=None,
+                   help="dir holding EdgeModel_gen.pth and "
+                        "InpaintingModel_gen.pth: the inpaint candidate "
+                        "fills through EdgeConnect's MODEL=3 pipeline. One "
+                        "pair at a time; exclusive with --inpaint_ckpt")
     return p
+
+
+def filler_factory(a, device):
+    """pair's (1, H, W) inpaint mask -> its inpaint_fn, from
+    --inpaint_ckpt or --edgeconnect_dir (None without either)."""
+    if a.inpaint_ckpt and a.edgeconnect_dir:
+        raise SystemExit("--inpaint_ckpt and --edgeconnect_dir are "
+                         "alternative inpaint backends; pick one")
+    if (a.inpaint_ckpt or a.edgeconnect_dir) and a.pair_batch > 1:
+        raise SystemExit("an inpaint filler plans pairs one at a time (drop "
+                         "--pair_batch): its closure captures each pair's "
+                         "own mask")
+    if a.inpaint_ckpt:
+        from t2onet_tpu_torch.models.inpaint import (load_inpaint,
+                                                     make_inpaint_fn)
+
+        net = load_inpaint(a.inpaint_ckpt, device)
+        return lambda mask: make_inpaint_fn(net, mask[None])
+    if a.edgeconnect_dir:
+        import torch
+
+        from t2onet_tpu_torch.models.edgeconnect import (
+            load_generator, make_edgeconnect_inpaint_fn)
+
+        nets = [load_generator(torch.load(
+            os.path.join(a.edgeconnect_dir, name), map_location="cpu",
+            weights_only=True), kind, device) for name, kind in (
+            ("EdgeModel_gen.pth", "edge"),
+            ("InpaintingModel_gen.pth", "inpaint"))]
+        return lambda mask: make_edgeconnect_inpaint_fn(*nets, mask)
+    return None
 
 
 def write_item(out_dir, data_id, request, img_x, img_y, actions, images):
@@ -74,6 +116,7 @@ def main(argv=None):
     if a.session == 1:
         a.session = 3
     device = common.resolve_device(a.device)
+    make_filler = filler_factory(a, device)
     out_dir = a.out_dir or f"output/GIER_actions_set_{a.action_id}"
     os.makedirs(out_dir, exist_ok=True)
 
@@ -121,9 +164,13 @@ def main(argv=None):
     else:
         for pair_id in pair_ids:
             img_x, img_y, request, op_masks, data_id = load_pair(pair_id)
+            inpaint_fn = None
+            if make_filler is not None and INPAINT_EXEC in op_masks:
+                # the filler fills THIS pair's ground-truth object mask
+                inpaint_fn = make_filler(op_masks[INPAINT_EXEC])
             actions, images = beam_search(
                 img_x, img_y, seed=a.manual_seed + pair_id,
-                op_masks=op_masks or None, **kw)
+                op_masks=op_masks or None, inpaint_fn=inpaint_fn, **kw)
             write_item(out_dir, data_id, request, img_x, img_y, actions,
                        images)
             n += 1

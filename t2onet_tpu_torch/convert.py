@@ -1,4 +1,5 @@
-"""Weights bridge: a JAX `t2onet_tpu` actor's variables -> a port `Actor`.
+"""Weights bridge: a JAX `t2onet_tpu` actor's variables -> a port `Actor`
+(and a JAX `InpaintNet`'s -> the port's, `load_jax_inpaint`).
 
 The inverse of `t2onet_tpu/convert/torch_checkpoint.py:convert_state_dict`
 (which reads the reference checkpoint's names, and so the port's):
@@ -139,5 +140,40 @@ def load_jax_variables(actor, params: Dict, batch_stats: Dict) -> None:
     for k, v in sd.items():
         if tuple(own[k].shape) != v.shape:
             raise ValueError(f"{k}: actor has {tuple(own[k].shape)}, "
+                             f"weights have {v.shape}")
+        own[k].copy_(torch.from_numpy(v))
+
+
+def inpaint_variables_to_state_dict(params: Dict) -> Dict[str, np.ndarray]:
+    """A JAX `InpaintNet`'s params ({"params": ...} or its inside) -> the
+    port's `models.inpaint.InpaintNet` state_dict arrays: GatedConv_i ->
+    gated.{i}.conv, Conv_0 -> out, HWIO kernels to OIHW. The feature half
+    of each gated conv's outputs comes first in both."""
+    params = params.get("params", params)
+    sd = {}
+    i = 0
+    while f"GatedConv_{i}" in params:
+        conv = params[f"GatedConv_{i}"]["Conv_0"]
+        sd[f"gated.{i}.conv.weight"] = _oihw(conv["kernel"])
+        sd[f"gated.{i}.conv.bias"] = conv["bias"]
+        i += 1
+    sd["out.weight"] = _oihw(params["Conv_0"]["kernel"])
+    sd["out.bias"] = params["Conv_0"]["bias"]
+    return {k: np.array(v, np.float32) for k, v in sd.items()}
+
+
+@torch.no_grad()
+def load_jax_inpaint(net, params: Dict) -> None:
+    """Fill a port `InpaintNet` in place from a JAX InpaintNet's params
+    (numpy arrays); every tensor must be covered, shapes must fit."""
+    sd = inpaint_variables_to_state_dict(params)
+    own = net.state_dict()
+    if set(sd) != set(own):
+        raise KeyError(f"weights do not match the net: missing "
+                       f"{sorted(set(own) - set(sd))[:5]}, unknown "
+                       f"{sorted(set(sd) - set(own))[:5]}")
+    for k, v in sd.items():
+        if tuple(own[k].shape) != v.shape:
+            raise ValueError(f"{k}: net has {tuple(own[k].shape)}, "
                              f"weights have {v.shape}")
         own[k].copy_(torch.from_numpy(v))

@@ -270,7 +270,8 @@ class Actor(nn.Module):
 
     def episode(self, x, img_x, sample: bool = False, generator=None,
                 noise_fn=None, fused_exec: bool = False, masks=None,
-                param_noise: float = 0.0, probe_size=None, normal_fn=None):
+                param_noise: float = 0.0, probe_size=None, normal_fn=None,
+                host_lengths=None):
         """Free rollout of decoder_max_len steps. Each step encodes the
         current image (or its `probe_size` view), decodes one op (explore
         smoothing, hard mask, then argmax, or with `sample` a Gumbel-max
@@ -297,13 +298,16 @@ class Actor(nn.Module):
             as a gather (the same values, exactly).
         :param probe_size: decode at this resolution (`_probe`), execute
             and return images at the input's.
+        :param host_lengths: the requests' token counts as a CPU tensor
+            (`RNNEncoder.forward`), so that the rollout reads nothing back
+            from the device.
         :return: dict with imgs (B, S, 3, H, W), ops (B, S),
             params (B, S, 24), logprobs (B, S, n_cls), attn (B, S, L).
         """
         cfg = self.cfg
         b = x.shape[0]
         draw = _draws(generator, noise_fn, normal_fn)
-        enc_out, enc_hidden, enc_valid = self.lang_encoder(x)
+        enc_out, enc_hidden, enc_valid = self.lang_encoder(x, host_lengths)
         enc_valid = self._attn_mask(enc_valid)
         carry = self.decoder.init_carry(enc_hidden)
         op_mask = torch.as_tensor(EPISODE_OP_MASK, device=x.device) \

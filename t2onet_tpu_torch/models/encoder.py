@@ -33,8 +33,12 @@ class RNNEncoder(nn.Module):
                            batch_first=True, bidirectional=True)
         freeze_second_lstm_bias(self.rnn)
 
-    def forward(self, tokens):
+    def forward(self, tokens, host_lengths=None):
         """tokens (B, L) int, zero-padded after the request.
+
+        host_lengths: the requests' token counts (B,) as a CPU tensor,
+        which packing needs on the host; without them they are counted on
+        the device and read back, one device->host sync.
 
         Returns outputs (B, L, 2H) zero at padding; (h, c) each
         (n_layers, B, 2H) with the two directions concatenated; and the
@@ -43,7 +47,9 @@ class RNNEncoder(nn.Module):
         lengths = (tokens != self.pad_id).sum(dim=1)
         valid = (torch.arange(l, device=tokens.device)[None, :]
                  < lengths[:, None]).to(torch.float32)
-        packed = pack_padded_sequence(self.embed(tokens), lengths.cpu(),
+        if host_lengths is None:
+            host_lengths = lengths.cpu()
+        packed = pack_padded_sequence(self.embed(tokens), host_lengths,
                                       batch_first=True, enforce_sorted=False)
         out, (h, c) = self.rnn(packed)
         out, _ = pad_packed_sequence(out, batch_first=True, total_length=l)

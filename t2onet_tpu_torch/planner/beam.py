@@ -7,10 +7,10 @@ at most `beam_size` sequences per pair (numpy, as the JAX package's).
 Arrays come in and go out as numpy; `device` says where the fits run
 (the card unless the caller asks for the CPU).
 
-Not ported yet: learned distances (`score_fn`) and a trained inpaint
-filler (`inpaint_fn`) wait for the GAN and inpaint port (ROADMAP A5),
-and sharded planning (`mesh`) for multi-GPU (A6); each raises
-NotImplementedError.
+A trained inpaint filler (`beam_search(inpaint_fn=)`) evaluates the
+inpaint candidate directly. Not ported yet: learned distances
+(`score_fn`) wait for the GAN port (ROADMAP A5), and sharded planning
+(`mesh`) for multi-GPU (A6); each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,11 +34,10 @@ def _dev(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def _unported(score_fn=None, inpaint_fn=None, mesh=None):
-    if score_fn is not None or inpaint_fn is not None:
+def _unported(score_fn=None, mesh=None):
+    if score_fn is not None:
         raise NotImplementedError(
-            "learned-distance planning (score_fn) and a trained inpaint "
-            "filler (inpaint_fn) wait for the GAN and inpaint port "
+            "learned-distance planning (score_fn) waits for the GAN port "
             "(ROADMAP A5)")
     if mesh is not None:
         raise NotImplementedError(
@@ -128,10 +127,17 @@ def beam_search(
     :param op_masks: optional {executor_op_idx: (1, H, W) float mask} for
         local (masked) ops, the GIER planner's mask conditioning.
     :param dist_type: 'l1' or 'l2' pixel distance ('L1'/'L2' accepted).
+    :param inpaint_fn: a trained filler for the inpaint op, (B, 3, H, W)
+        -> (B, 3, H, W) tensors on `device`, its hole mask captured
+        (`models.inpaint.make_inpaint_fn`,
+        `models.edgeconnect.make_edgeconnect_inpaint_fn`). The inpaint
+        candidate has no parameters, so it is evaluated directly, not
+        fitted; without a filler inpaint is the identity and plain mode
+        never selects it.
     :return: (actions, images): actions[b] = [(op_name, params, dist),
         ...] per beam; images[b] = the per-step edited images (1,3,H,W).
     """
-    _unported(score_fn, inpaint_fn)
+    _unported(score_fn)
     if mode not in ("plain", "eps", "fixed"):
         raise ValueError(f"unknown beam-search mode {mode!r} "
                          "(want plain | eps | fixed)")
@@ -146,6 +152,7 @@ def beam_search(
     min_dist = float("inf")
     sequences: List[Tuple[list, float]] = [([], float("inf"))]
     I_buff = I_0.copy()                           # (n_beam, 3, H, W)
+    INPAINT = OP_NAMES.index("inpaint")
 
     for step in range(max_step):
         if mode == "fixed":
@@ -154,6 +161,17 @@ def beam_search(
             step_ops = list(operations)
         if not step_ops:
             break
+        # the parameterless inpaint candidate: the filler's output as it is
+        inp_outs = inp_dists = None
+        if inpaint_fn is not None and INPAINT in step_ops:
+            with torch.no_grad():
+                inp_outs = inpaint_fn(_dev(I_buff, device)).cpu().numpy()
+            if dist_type == "l2":
+                inp_dists = ((inp_outs - I_gt) ** 2).mean(axis=(1, 2, 3))
+            else:
+                inp_dists = np.abs(inp_outs - I_gt).mean(axis=(1, 2, 3))
+        fit_ops = [op for op in step_ops
+                   if not (op == INPAINT and inp_outs is not None)]
 
         n_beam = len(sequences)
         used_by_beam = [set() if replace else
@@ -176,8 +194,8 @@ def beam_search(
                 if dist < err:
                     finish = True
 
-        if fused:
-            fos = tuple(int(op) for op in step_ops)
+        if fused and fit_ops:
+            fos = tuple(int(op) for op in fit_ops)
             allow = np.zeros((1, n_beam, len(fos)), bool)
             for j in range(n_beam):
                 for i, op in enumerate(fos):
@@ -207,14 +225,27 @@ def beam_search(
                 consider(int(sel_beam[r]), op, float(sel_d[r]),
                          sel_params[r, : O.PARAM_COUNTS[op]].tolist(),
                          sel_imgs[r])
+            if inp_outs is not None:
+                for j in range(n_beam):
+                    if INPAINT not in used_by_beam[j]:
+                        consider(j, INPAINT, float(inp_dists[j]),
+                                 [0.0] * O.PARAM_COUNTS[INPAINT],
+                                 inp_outs[j])
         else:
-            params, dists, outs, cand_ops = _fit_step(
-                I_buff, I_gt, step_ops, n_starts, n_iters, lr,
-                init_key=seed + step, op_masks=op_masks,
-                dist_type=dist_type, device=device)
+            if fit_ops:
+                params, dists, outs, cand_ops = _fit_step(
+                    I_buff, I_gt, fit_ops, n_starts, n_iters, lr,
+                    init_key=seed + step, op_masks=op_masks,
+                    dist_type=dist_type, device=device)
+            else:                                 # inpaint-only search
+                cand_ops = np.empty(0, np.int64)
             for j in range(n_beam):
                 for op in step_ops:
                     if op in used_by_beam[j]:
+                        continue
+                    if op == INPAINT and inp_outs is not None:
+                        consider(j, op, float(inp_dists[j]),
+                                 [0.0] * O.PARAM_COUNTS[op], inp_outs[j])
                         continue
                     cols = np.where(cand_ops == op)[0]
                     best = cols[int(np.argmin(dists[j, cols]))]
@@ -236,12 +267,37 @@ def beam_search(
         if no_update or finish:
             break
 
-    # recompute the survivors' per-step images
     actions = [list(seq) for seq, _ in sequences]
-    images = _replay_images_batch(
-        np.asarray(I_0), [actions],
-        None if op_masks is None else [op_masks], device=device)[0]
+    images = _replay_images(I_0, actions, op_masks, inpaint_fn, device)
     return actions, images
+
+
+def _replay_images(I_0, actions, op_masks=None, inpaint_fn=None,
+                   device="cuda"):
+    """Recompute each surviving beam's per-step images: every beam in one
+    batched replay without a filler; with one, op by op through
+    `apply_op_by_index` (the filler runs outside the bank)."""
+    if inpaint_fn is None:
+        return _replay_images_batch(
+            np.asarray(I_0), [actions],
+            None if op_masks is None else [op_masks], device=device)[0]
+    images = []
+    with torch.no_grad():
+        for seq in actions:
+            imgs = []
+            cur = _dev(I_0, device)
+            for (name, p_list, _d) in seq:
+                op = OP_NAMES.index(name)
+                p = torch.tensor([p_list], dtype=torch.float32,
+                                 device=device).reshape(1, -1)
+                mask = None
+                if op_masks and op in op_masks:
+                    mask = _dev(op_masks[op], device)[None]
+                cur = O.apply_op_by_index(cur, op, p, mask=mask,
+                                          inpaint_fn=inpaint_fn)
+                imgs.append(cur.cpu().numpy())
+            images.append(imgs)
+    return images
 
 
 @torch.no_grad()

@@ -251,8 +251,6 @@ def test_unported_arguments_raise():
     x, y, _ = fivek_pairs(1)
     with pytest.raises(NotImplementedError, match="A5"):
         beam.beam_search(x, y, score_fn=lambda o, a: o, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        beam.beam_search(x, y, inpaint_fn=lambda i: i, device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         beam.batch_beam_search(x, y, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
@@ -372,10 +370,17 @@ def test_plan_fivek_refuses_unported_flags(flag, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--inpaint_ckpt", "--edgeconnect_dir"])
-def test_plan_gier_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        plan_gier.plan_parser().parse_args([flag, "x"])
-    assert "A5" in capsys.readouterr().err
+def test_plan_gier_refuses_unported_flags(flag, tmp_path):
+    """An inpaint filler captures one pair's mask: with --pair_batch, or
+    beside the other filler, the CLI refuses it before planning."""
+    base = ["--device", "cpu", "--out_dir", str(tmp_path), flag, "x"]
+    other = "--edgeconnect_dir" if flag == "--inpaint_ckpt" else \
+        "--inpaint_ckpt"
+    for extra, why in ((["--pair_batch", "2"], "one at a time"),
+                       ([other, "y"], "pick one")):
+        with pytest.raises(SystemExit) as e:
+            plan_gier.main(base + extra)
+        assert why in str(e.value.code)
 
 
 def test_plan_fivek_cli_on_synthetic_pairs(tmp_path):

@@ -152,17 +152,26 @@ def test_cuda_engine_without_card_raises(engines):
 
 
 def test_port_imports_no_jax():
-    """Importing and running the port's serving path, and the actor's
-    other modes and the RL modules, loads neither JAX nor the JAX
-    package."""
+    """Importing every module of the port, and running its serving path
+    (the batcher too), the actor's other modes and the inpaint fillers,
+    loads neither JAX nor the JAX package."""
     code = (
-        "import sys, numpy as np, torch\n"
+        "import importlib, pkgutil, sys, numpy as np, torch\n"
+        "import t2onet_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages("
+        "t2onet_tpu_torch.__path__, 't2onet_tpu_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "assert 't2onet_tpu_torch.models.edgeconnect' in mods\n"
         "from t2onet_tpu_torch.config import ModelConfig, OperatorConfig\n"
         "from t2onet_tpu_torch.models.actor import Actor\n"
-        "from t2onet_tpu_torch.serve import ServingEngine\n"
-        "import t2onet_tpu_torch.convert\n"
-        "import t2onet_tpu_torch.train.rl, t2onet_tpu_torch.cli.train_rl\n"
+        "from t2onet_tpu_torch.models import edgeconnect, inpaint\n"
+        "from t2onet_tpu_torch.serve import MicroBatcher, ServingEngine\n"
         "torch.set_num_threads(1)\n"
+        "f = inpaint.make_inpaint_fn(inpaint.InpaintNet(4, (2,)),"
+        " torch.ones(1, 1, 8, 8))\n"
+        "assert f(torch.rand(2, 3, 8, 8)).shape == (2, 3, 8, 8)\n"
+        "assert edgeconnect.canny_edges(np.eye(8)).shape == (8, 8)\n"
         "m = Actor(ModelConfig.tiny(resnet_depth=50, vis_bf16=True,"
         " discrete_param=True), OperatorConfig(), 10,"
         " generator=torch.Generator().manual_seed(0))\n"
@@ -176,6 +185,10 @@ def test_port_imports_no_jax():
         "[r] = e.edit_batch([np.full((3, 20, 24), 0.5, np.float32)],"
         " ['bright'])\n"
         "assert r.image.shape == (3, 20, 24)\n"
+        "b = MicroBatcher(e, linger_ms=1).start()\n"
+        "p = e.submit(np.full((3, 20, 24), 0.5, np.float32), 'bright')\n"
+        "assert p.done.wait(60) and p.error is None\n"
+        "b.stop()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'flax', 't2onet_tpu')]\n"
         "assert not bad, bad\n"
