@@ -3,6 +3,7 @@ on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 4b,serve_pipeline,http,inpaint,demo_plan
+    python3 chip_smoke.py --phases gan,gan_plan,fid,pix2pixhd
 
 The second form runs the named phases alone after phases 1-3 (the
 eval's checkpoint that demo_plan reads is written without the eval) and
@@ -159,7 +160,7 @@ line. Phases (any failure exits non-zero): (any failure exits non-zero):
    the input's shape), /healthz, 404 and 400; `cli.serve --bench 64
    --img_size 512` and its JSON line;
 23. inpaint: `cli.train_inpaint` on data_real_h2h at the CLI's defaults
-   for 300 iterations (finite falling loss, a checkpoint, held-out hole
+   for 200 iterations (finite falling loss, a checkpoint, held-out hole
    L1 below the blanked hole's); the train step's time; one step card
    against CPU from the same weights (loss 1e-5 relative; the card's
    gradients within 1e-5 of their norm of the CPU's f64 ones, each tensor
@@ -174,7 +175,30 @@ line. Phases (any failure exits non-zero): (any failure exits non-zero):
    the 4 first shapeAlign train pairs with an inpaint mask at phase 15's
    128 px: every filler call of the card's search again on the CPU from
    the same input (outputs within 1e-4), and 2 of the pairs planned on
-   the CPU, held as phase 15 holds plans; no kernel launched.
+   the CPU, held as phase 15 holds plans; no kernel launched;
+25. gan: `cli.train_gan` on data_real_h2h with the committed actions at
+   ModelConfig() width, b64, 128 px, 8 iterations (4 GAN), a checkpoint
+   with its disc/ and gan_opt/ twins: B1 and B3 exactly 5 each a GAN
+   iteration (the rollout's fused steps) plus 5 B1 a validation batch
+   (4), finite losses; a GAN iteration's host clock and device time
+   (torch.profiler); one GAN iteration of a full-width actor and
+   discriminator on a real b8 batch at 64 px, card against CPU (losses
+   1e-5, gradients within phase 9's bounds), and the GAN half alone on a
+   fixed fake, card f32 against CPU f64 (losses and the discriminator's
+   and condition encoder's gradients 1e-5 of their norm, each tensor
+   1e-4 of its own; G's image gradient 1e-3);
+26. gan_plan: `cli.plan_fivek --dist_type seq2seqGAN-disc --disc_run_dir`
+   on phase 25's run over the first 8 FiveK train pairs at 128 px (beam
+   1, one start, 10 Adam steps), no kernel launched; 2 of them replanned
+   on the CPU and held as phase 14 holds plans;
+27. fid: `cli.test_fivek --fid_inception_ckpt` with a random InceptionV3
+   (`make_random_inception_pth`) on phase 12's 50 pairs from its
+   checkpoint, no variance probe: B1 5 a pair and no other kernel,
+   finite FIDs, the features' share of a pair; 4 images' features card
+   against CPU within 1e-4 of their norm;
+28. pix2pixhd: `define_generator('global')` and `('local')` at their
+   defaults on one 256² image, card against CPU within 1e-4, ms a
+   forward.
 
 The last three lines of stdout are the kernels JSON line, the card's
 name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
@@ -1266,13 +1290,13 @@ def train_timing_phase(state):
 
 
 # -- phase 9 ------------------------------------------------------------------
-def grad_gap(card_state, cpu_state):
-    """(||card - cpu|| / ||cpu|| over all gradients, [(error / bound,
-    name)] per tensor worst first with bound 5e-2 of its own norm plus
-    1e-6 of the whole, the BN running statistics' largest gap)."""
+def module_grad_gap(card, cpu):
+    """(||card - cpu|| / ||cpu|| over a module's gradients, [(error /
+    bound, name)] per tensor worst first with bound 5e-2 of its own norm
+    plus 1e-6 of the whole)."""
     pairs = [(n, pc.grad.double().cpu(), pp.grad.double().cpu())
-             for (n, pc), (_, pp) in zip(card_state.actor.named_parameters(),
-                                         cpu_state.actor.named_parameters())
+             for (n, pc), (_, pp) in zip(card.named_parameters(),
+                                         cpu.named_parameters())
              if pc.requires_grad]
     total = math.sqrt(sum(float((gp * gp).sum()) for _, _, gp in pairs))
     diff = math.sqrt(sum(float(((gc - gp) ** 2).sum())
@@ -1280,12 +1304,18 @@ def grad_gap(card_state, cpu_state):
     per = sorted(((float((gc - gp).norm()) / (0.05 * float(gp.norm())
                                               + 1e-6 * total), n)
                   for n, gc, gp in pairs), reverse=True)
+    return diff / total, per
+
+
+def grad_gap(card_state, cpu_state):
+    """`module_grad_gap` of the actors, and the BN running statistics'
+    largest gap."""
     stats = max(float((bc.cpu() - bp.cpu()).abs().max())
                 for (n, bc), (_, bp) in
                 zip(card_state.actor.named_buffers(),
                     cpu_state.actor.named_buffers())
                 if "running" in n)
-    return diff / total, per, stats
+    return module_grad_gap(card_state.actor, cpu_state.actor) + (stats,)
 
 
 def within_phase9(lc, lp, rel, per, stats):
@@ -2970,7 +3000,7 @@ def http_phase():
 # -- phase 23 -----------------------------------------------------------------
 INPAINT_RUN_DIR = os.path.join("output", "chip_smoke_inpaint")
 INPAINT_CKPT = os.path.join(INPAINT_RUN_DIR, "inpaint_model")
-INPAINT_ITERS = 300
+INPAINT_ITERS = 200       # of the CLI's 2,000, cut to keep the whole run short
 INPAINT_ARGV = ["--device", "cuda", "--data_dir", "data_real_h2h",
                 "--act_dir", FIVEK_ACTS, "--glove_path", FIVEK_GLOVE_NPY,
                 "--num_iters", str(INPAINT_ITERS),
@@ -3027,7 +3057,7 @@ def random_edgeconnect_sd(rng, cin, cout, spectral):
 
 def inpaint_phase():
     """`cli.train_inpaint` on data_real_h2h with the CLI's defaults
-    (InpaintNet features 32, batch 16, 128 px, lr 2e-4) for 300
+    (InpaintNet features 32, batch 16, 128 px, lr 2e-4) for 200
     iterations: finite falling loss, a checkpoint, the held-out hole L1
     below the blanked one; the train step's time; one step on the card
     against the CPU from the same weights; the full-width EdgeConnect
@@ -3376,9 +3406,398 @@ def demo_plan_phase():
     return out
 
 
+# -- phases 25-28: the GAN half ---------------------------------------------
+GAN_RUN_DIR = os.path.join("output", "chip_smoke_gan")
+GAN_ARGV = ["--device", "cuda", "--data_dir", "data_real_h2h",
+            "--act_dir", FIVEK_ACTS, "--glove_path", FIVEK_GLOVE_NPY,
+            "--batch_size", "64", "--img_size", "128", "--num_iters", "8",
+            "--print_every", "2", "--checkpoint_every", "8",
+            "--fused_exec", "1", "--run_dir", GAN_RUN_DIR]
+GAN_VAL_BATCHES = 4        # train_gan validates on 4 batches, as JAX's
+GAN_F64_RTOL = 1e-5        # the GAN half, card f32 against CPU f64
+# each D tensor against its own norm: cuDNN's f32 algorithms for the
+# half-resolution scale (FFT among them) put 1.8e-5 on a small tensor
+GAN_F64_TENSOR_RTOL = 1e-4
+# G's gradient to the image crosses feature matching's L1 kinks, where
+# f32 and f64 take other signs: 3.3e-4 apart on the CPU's own f32
+GAN_IMG_GRAD_RTOL = 1e-3
+
+
+def gan_half(bundle, batch, hid, device, dtype):
+    """The GAN half alone on a fixed fake image, in `dtype` on `device`:
+    (G loss, D loss, G's gradient to the fake image, {name: D and
+    condition encoder gradient}), the gradients as f64 CPU tensors."""
+    from t2onet_tpu_torch.models.gan import Seq2SeqGANLosses
+
+    bnd = copy.deepcopy(bundle).to(device, dtype).train()
+    src, fake, gt = (torch.from_numpy(np.asarray(batch[k])).to(device, dtype)
+                     for k in ("img_x", "fake", "gt_img"))
+    hid = hid.to(device, dtype)
+    losses = Seq2SeqGANLosses()
+    fake.requires_grad_(True)
+    with torch.no_grad():
+        cond = bnd.cond_encoder(hid)
+    bnd.requires_grad_(False)
+    ld = losses(bnd.netD, src, fake, gt, cond, parts="g")
+    g_loss = ld["G_GAN"] + ld["G_GAN_Feat"]
+    g_loss.backward()
+    bnd.requires_grad_(True)
+    ld2 = losses(bnd.netD, src, fake.detach(), gt, bnd.cond_encoder(hid),
+                 parts="d")
+    d_loss = 0.5 * (ld2["D_fake"] + ld2["D_real"])
+    d_loss.backward()
+    return (g_loss.item(), d_loss.item(), fake.grad.double().cpu(),
+            {n: p.grad.double().cpu() for n, p in bnd.named_parameters()})
+
+
+def gan_card_vs_cpu():
+    """One GAN iteration of a full-width actor and discriminator on one
+    real b8 FiveKAct batch at 64 px, the same weights and Gumbel noise,
+    the card (B1, B3) against the CPU (their plain versions): the six
+    losses within 1e-5, the actor's, D's and the condition encoder's
+    gradients within phase 9's bounds (they follow the sampled rollout).
+    Then the GAN half alone on a fixed fake: the card's f32 G and D
+    losses and the D and condition-encoder gradients within GAN_F64_RTOL
+    of the CPU's f64 (of their whole norm; each tensor within
+    GAN_F64_TENSOR_RTOL of its own plus 1e-6 of the whole; TF32, ~1e-3,
+    fails both), G's gradient to the image within GAN_IMG_GRAD_RTOL."""
+    from t2onet_tpu_torch.cli import train_gan
+    from t2onet_tpu_torch.data.fivek import FiveKAct
+    from t2onet_tpu_torch.data.text import load_embedding
+    from t2onet_tpu_torch.models.common import init_torch_defaults
+    from t2onet_tpu_torch.models.gan import DiscBundle, Seq2SeqGANLosses
+
+    glove = load_embedding(FIVEK_GLOVE_NPY)
+    ds = FiveKAct(os.path.join("data_real_h2h", "FiveK", "images"),
+                  os.path.join("data_real_h2h", "FiveK", "annotations"),
+                  FIVEK_ACTS, "train", 1, 64)
+    nb = next(ds.batches(8, 1, shuffle=True, seed=2))
+    cfg = ModelConfig(fix_input_embedding=True)
+    actor = Actor(cfg, OperatorConfig(), glove.shape[0] + 4,
+                  generator=torch.Generator().manual_seed(3), word2vec=glove)
+    knots_near_one(actor)
+    bundle = DiscBundle(cfg.n_layers * 2 * cfg.hidden_size)
+    init_torch_defaults(bundle, torch.Generator().manual_seed(17))
+    g = torch.Generator().manual_seed(11)
+    draws = [bank.gumbel_noise((8, cfg.op_vocab_size), g)
+             for _ in range(cfg.decoder_max_len)]
+    # the GAN half's fixed fake: another item's input (a planner step
+    # image sits so near the ground truth that feature matching's L1
+    # kinks decide G's image gradient)
+    batch = {"x": nb["x"], "img_x": nb["img_x"], "gt_img": nb["img_y"][:, -1],
+             "fake": nb["img_x"][::-1].copy()}
+    runs = {}
+    for name, dev in (("card", "cuda"), ("cpu", "cpu")):
+        st = loop.TrainState(copy.deepcopy(actor).to(dev))
+        gs = train_gan.GANState(copy.deepcopy(bundle).to(dev), st.params)
+        it = iter(draws)
+        m = train_gan.gan_step(
+            st, gs, device_put_batch({k: batch[k] for k in
+                                      ("x", "img_x", "gt_img")}, dev),
+            Seq2SeqGANLosses(), fused_exec=True,
+            noise_fn=lambda shape, it=it, dev=dev: next(it).to(dev))
+        runs[name] = (st, gs, {k: float(v) for k, v in m.items()})
+    (cs, cg, cm), (ps, pg, pm) = runs["card"], runs["cpu"]
+    loss_gap = max(abs(cm[k] - pm[k]) / (abs(pm[k]) + 1e-7) for k in pm)
+    rel, per, stats = grad_gap(cs, ps)
+    d_rel, d_per = module_grad_gap(cg.bundle, pg.bundle)
+    log(f"card vs CPU GAN iteration (b8 real FiveK items, 64 px, full "
+        f"width, same noise): losses card {cm}, CPU {pm}, largest relative "
+        f"gap {loss_gap:.2e}; actor gradients ||card - cpu|| / ||cpu|| "
+        f"{rel:.2e}, worst {[(n, round(r, 4)) for r, n in per[:2]]}, BN "
+        f"stats {stats:.2e}; D and condition encoder {d_rel:.2e}, worst "
+        f"{[(n, round(r, 4)) for r, n in d_per[:2]]}")
+    if not (loss_gap <= 1e-5 and rel <= 1e-2 and per[0][0] <= 1.0
+            and stats <= 1e-4 and d_rel <= 1e-2 and d_per[0][0] <= 1.0):
+        fail("the card's GAN iteration disagrees with the CPU's")
+    with torch.no_grad():
+        hid = actor.lang_encoder(torch.from_numpy(
+            np.asarray(nb["x"]).astype(np.int64)))[1][0]
+    card = gan_half(bundle, batch, hid, "cuda", torch.float32)
+    ref = gan_half(bundle, batch, hid, "cpu", torch.float64)
+    loss64 = max(abs(card[i] - ref[i]) / abs(ref[i]) for i in (0, 1))
+    img64 = float((card[2] - ref[2]).norm() / ref[2].norm())
+    total = math.sqrt(sum(float((v * v).sum()) for v in ref[3].values()))
+    d64 = math.sqrt(sum(float(((card[3][n] - v) ** 2).sum())
+                        for n, v in ref[3].items())) / total
+    per64 = sorted(((float((card[3][n] - v).norm())
+                     / (GAN_F64_TENSOR_RTOL * float(v.norm())
+                        + 1e-6 * total), n)
+                    for n, v in ref[3].items()), reverse=True)
+    log(f"  the GAN half on a fixed fake (another item's input), "
+        f"card f32 against CPU f64: G loss {card[0]:.7f} vs {ref[0]:.7f}, "
+        f"D loss {card[1]:.7f} vs {ref[1]:.7f} (relative gap {loss64:.2e}); "
+        f"G's gradient to the image {img64:.2e} (bound {GAN_IMG_GRAD_RTOL}); "
+        f"D and condition encoder "
+        f"{d64:.2e}, worst tensors' error / bound "
+        f"{[(n, round(r, 4)) for r, n in per64[:3]]} (bounds "
+        f"{GAN_F64_RTOL} of the whole; {GAN_F64_TENSOR_RTOL} of each norm "
+        f"plus 1e-6 of the whole)")
+    if not (loss64 <= GAN_F64_RTOL and img64 <= GAN_IMG_GRAD_RTOL
+            and d64 <= GAN_F64_RTOL and per64[0][0] <= 1.0):
+        fail(f"the card's GAN half is not within {GAN_F64_RTOL} of the "
+             f"CPU's f64")
+    return {"losses_card": cm, "losses_cpu": pm, "loss_rel_gap": loss_gap,
+            "actor_grad_rel": rel, "actor_worst": per[0][0],
+            "bn_stats": stats, "disc_grad_rel": d_rel,
+            "disc_worst": d_per[0][0], "f64_loss_rel": loss64,
+            "f64_fake_grad_rel": img64, "f64_disc_grad_rel": d64,
+            "f64_disc_worst": per64[0][0]}
+
+
+def gan_phase():
+    """`cli.train_gan` on the repo's real FiveK train pairs and their
+    committed actions at ModelConfig() width, b64, 128 px, 8 iterations (4
+    GAN), a checkpoint with its disc/ and gan_opt/ twins: B1 and B3
+    launched as the GAN iterations and the validation count them; a GAN
+    iteration's host clock and device time; card against CPU."""
+    from t2onet_tpu_torch.cli import train_gan
+    from t2onet_tpu_torch.models.gan import Seq2SeqGANLosses
+
+    shutil.rmtree(GAN_RUN_DIR, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    state, gan = train_gan.main(GAN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(chain.LAUNCHES)
+    steps = state.actor.cfg.decoder_max_len
+    want = 4 * steps
+    log(f"train_gan: 8 iterations (4 GAN) in {wall:.2f} s (host clock, "
+        f"JPEG decode, validation and checkpoints included); launches "
+        f"{launches}, want step_bwd = {want}, chain = {want} + "
+        f"{GAN_VAL_BATCHES} x {steps} (validation)")
+    if state.step != 8:
+        fail(f"the GAN trainer stopped at step {state.step}, not 8")
+    if not (launches["step_bwd"] == want
+            and launches["chain"] == want + GAN_VAL_BATCHES * steps
+            and launches["chain_masked"] == launches["step_bwd_masked"] == 0):
+        fail(f"train_gan launches {launches}")
+    losses = logged_losses(os.path.join(GAN_RUN_DIR, "metrics.jsonl"),
+                           keys=("op_loss", "param_loss", "G_loss", "D_loss",
+                                 "val_L1"))
+    log(f"  logged {losses}")
+    keys = {k for _, k, _ in losses}
+    if not {"G_loss", "D_loss", "val_L1"} <= keys or \
+            not all(math.isfinite(v) for _, _, v in losses):
+        fail(f"non-finite or missing GAN losses: {losses}")
+    ckpt_dir = os.path.join(GAN_RUN_DIR, "seq2seqGAN_model")
+    for sub in ("", "disc", "gan_opt"):
+        if not os.path.exists(os.path.join(ckpt_dir, sub,
+                                           "checkpoint_iter00000008.pt")):
+            fail(f"train_gan wrote no checkpoint in {ckpt_dir}/{sub}")
+    # a GAN iteration on a real batch already on the card
+    a = train_gan.train_parser().parse_args(GAN_ARGV)
+    ds = common.build_dataset_and_vocab(a, "train", wire_u8=True)[0]
+    nb = next(ds.batches(64, 1, shuffle=True, seed=11))
+    batch = device_put_batch({"x": nb["x"], "img_x": nb["img_x"],
+                              "gt_img": nb["img_y"][:, -1]}, "cuda")
+    losses_fn = Seq2SeqGANLosses(n_layers=a.n_layers_D, num_D=a.num_D)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def iteration():
+        return train_gan.gan_step(state, gan, batch, losses_fn,
+                                  generator=gen, fused_exec=True)
+
+    reset_launches()
+    host = timed(iteration)
+    per_it = {k: v / 8 for k, v in chain.LAUNCHES.items() if v}
+    prof = [profiled_us(iteration, calls=1) for _ in range(3)]
+    dev_ms = statistics.median(p["all"] for p in prof) / 1e3
+    dev_ops = statistics.median(p["count"] for p in prof)
+    top = sorted(((k, v) for k, v in prof[0].items()
+                  if k not in ("all", "count")),
+                 key=lambda kv: -kv[1])
+    host_ms = statistics.median(host)
+    log(f"  a GAN iteration, b64 128 px, ModelConfig(), ndf 64 x 2 scales, "
+        f"TF32 off: host clock {host_ms:.2f} ms (median of 6 after 2 "
+        f"warm-ups, synchronised), device {dev_ms:.2f} ms in "
+        f"{dev_ops:.0f} operations (torch.profiler, median of 3 after a "
+        f"warm-up): the card idle {1 - dev_ms / host_ms:.1%}; launches per "
+        f"iteration {per_it}; largest µs "
+        f"{[(k, round(v, 1)) for k, v in top[:4]]}")
+    if per_it != {"chain": steps, "step_bwd": steps}:
+        fail(f"a GAN iteration launched {per_it}, not {steps} of B1 and B3")
+    cvc = gan_card_vs_cpu()
+    return {"launches": launches, "wall_s": wall, "iter_host_ms": host_ms,
+            "iter_host_ms_all": host, "iter_device_ms": dev_ms,
+            "iter_device_ops": dev_ops, "launches_per_iter": per_it,
+            "card_vs_cpu": cvc}
+
+
+GAN_PLAN_PAIRS = 8
+GAN_PLAN_CPU_PAIRS = 2
+# one beam, one restart, 10 Adam steps: the CPU's replan of a pair (the
+# discriminator at 128 px, ~0.25 s a fit step on 8 cores) stays ~15 s
+GAN_PLAN_ARGV = ["--data_dir", "data_real_h2h", "--glove_path",
+                 FIVEK_GLOVE_NPY, "--img_size", "128", "--manual_seed", "10",
+                 "--dist_type", "seq2seqGAN-disc", "--disc_run_dir",
+                 GAN_RUN_DIR, "--beam_size", "1", "--n_starts", "1",
+                 "--n_iters", "10"]
+
+
+def gan_plan_phase():
+    """`cli.plan_fivek --dist_type seq2seqGAN-disc --disc_run_dir` on the
+    gan phase's run (its best checkpoint and disc/ twin, eval mode) over
+    the first FiveK train pairs at 128 px on the card, no kernel
+    launched; the first 2 replanned on the CPU, held as phase 14 holds
+    plans."""
+    from t2onet_tpu_torch.cli import plan_fivek
+
+    if not os.path.isdir(os.path.join(GAN_RUN_DIR, "seq2seqGAN_model")):
+        fail("gan_plan reads the gan phase's run: run gan first")
+    out = os.path.join("output", "chip_smoke_gan_plan")
+    cpu_out = out + "_cpu"
+    for d in (out, cpu_out):
+        shutil.rmtree(d, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    n = plan_fivek.main(["--device", "cuda", "--limit", str(GAN_PLAN_PAIRS),
+                         "--out_dir", out] + GAN_PLAN_ARGV)
+    wall = time.perf_counter() - t0
+    launches = dict(chain.LAUNCHES)
+    t1 = time.perf_counter()
+    plan_fivek.main(["--device", "cpu", "--limit", str(GAN_PLAN_CPU_PAIRS),
+                     "--out_dir", cpu_out] + GAN_PLAN_ARGV)
+    cpu_s = time.perf_counter() - t1
+    log(f"plan_fivek --dist_type seq2seqGAN-disc: {n} pairs in {wall:.2f} s "
+        f"on the card ({n / wall:.3f} pairs/s; beam 1, 1 start, 10 Adam "
+        f"steps, 128 px), launches {launches}; {GAN_PLAN_CPU_PAIRS} pairs "
+        f"on the CPU in {cpu_s:.2f} s")
+    if n != GAN_PLAN_PAIRS or any(launches.values()):
+        fail(f"the disc planner planned {n} pairs with launches {launches}: "
+             f"want {GAN_PLAN_PAIRS} and none")
+    res = compare_plans("gan_plan", [
+        (f"train{i}", os.path.join(out, f"train{i}"),
+         os.path.join(cpu_out, f"train{i}"), f"{i:05d}.json")
+        for i in range(GAN_PLAN_CPU_PAIRS)], against="the CPU's plans")
+    plans = {}
+    for i in range(GAN_PLAN_PAIRS):
+        with open(os.path.join(out, f"train{i}", f"{i:05d}.json")) as f:
+            plans[f"train{i}"] = [(s[0], round(s[2], 6)) for s in
+                                  json.load(f)["operation sequence"][0]]
+    log(f"  the card's top beams (op, disc distance): {plans}")
+    return {"pairs": n, "wall_s": wall, "pairs_per_s": n / wall,
+            "cpu_s": cpu_s, "launches": launches, "plans": plans, **res}
+
+
+FID_DIR = os.path.join("output", "chip_smoke_fid")
+FID_PTH = os.path.join(FID_DIR, "inception_random.pth")
+FID_CPU_IMAGES = 4
+FID_FEAT_RTOL = 1e-4       # each image's 2048 features, of their norm
+
+
+def fid_phase():
+    """`cli.test_fivek --fid_inception_ckpt` (a random InceptionV3 written
+    by `make_random_inception_pth`) on phase 12's 50 FiveK test pairs
+    from phase 12's checkpoint, no variance probe: B1 once per rollout
+    step and no other kernel, finite in_FID and out_FID, the features'
+    share of a pair; the card's features of 4 test images against the
+    CPU's."""
+    from t2onet_tpu_torch.cli import test_fivek
+    from t2onet_tpu_torch.evals.inception import (load_fid_inception,
+                                                  make_random_inception_pth)
+
+    os.makedirs(FID_DIR, exist_ok=True)
+    make_random_inception_pth(FID_PTH, seed=0)
+    a = write_eval_checkpoint(test_fivek, FIVEK_EVAL_ARGV)
+    argv = FIVEK_EVAL_ARGV + ["--visualize", "0", "--skip_variance",
+                              "--fid_inception_ckpt", FID_PTH]
+    records = []
+    native = test_fivek.test_native_res
+
+    def keep_records(*args, **kw):
+        return native(*args, records=records, **kw)
+
+    reset_launches()
+    test_fivek.test_native_res = keep_records
+    try:
+        t0 = time.perf_counter()
+        res = test_fivek.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        test_fivek.test_native_res = native
+    launches = dict(chain.LAUNCHES)
+    n = len(records)
+    want = n * a.decoder_max_len
+    feat = [r["features_s"] * 1e3 for r in records]
+    pair = [sum(r[k] for k in STAGES) * 1e3 for r in records]
+    share = sum(feat) / sum(pair)
+    log(f"fid: test_fivek on {n} pairs with a random InceptionV3 in "
+        f"{wall:.2f} s (host clock; the two Frechet distances, 2048-d "
+        f"sqrtm on the host, included): in_FID {res.get('in_FID')}, out_FID "
+        f"{res.get('out_FID')}; launches {launches}, want chain = {want}; "
+        f"features (3 images a pair, resized to 299) median "
+        f"{statistics.median(feat):.2f} ms of a pair's "
+        f"{statistics.median(pair):.2f} ms, {share:.1%} of the native loop")
+    if n != 50 or launches["chain"] != want or any(
+            v for k, v in launches.items() if k != "chain"):
+        fail(f"fid eval: {n} pairs, launches {launches}")
+    if not all(math.isfinite(res.get(k, float("nan")))
+               for k in ("in_FID", "out_FID", "in_L1", "out_L1")):
+        fail(f"fid eval metrics not finite or missing: {res}")
+    ds = common.build_dataset_and_vocab(a, "test")[0]
+    imgs = [ds[i][0][None] for i in range(FID_CPU_IMAGES)]
+    card = load_fid_inception(FID_PTH, "cuda")
+    cpu = load_fid_inception(FID_PTH, "cpu")
+    gaps = [float(np.linalg.norm(card(im) - cpu(im))
+                  / np.linalg.norm(cpu(im))) for im in imgs]
+    ms = statistics.median(timed(lambda: card(imgs[0]), n=10, warmup=3))
+    log(f"  features of {FID_CPU_IMAGES} test images ({imgs[0].shape[2:]} "
+        f"and the like, resized to 299), card against CPU: relative gaps "
+        f"{[f'{g:.2e}' for g in gaps]} (bound {FID_FEAT_RTOL}); {ms:.2f} ms "
+        f"an image on the card (host clock, upload and readback included)")
+    if not max(gaps) <= FID_FEAT_RTOL:
+        fail(f"the card's Inception features disagree with the CPU's: {gaps}")
+    return {"pairs": n, "launches": launches, "wall_s": wall,
+            "metrics": res, "features_ms_median": statistics.median(feat),
+            "pair_ms_median": statistics.median(pair),
+            "features_share": share, "card_vs_cpu_rel": gaps,
+            "features_ms_per_image": ms}
+
+
+P2P_ATOL = 1e-4            # tanh outputs, card against CPU
+
+
+def pix2pixhd_phase():
+    """`define_generator('global')` and `('local')` at their defaults,
+    seeded torch-default weights, on one 256² image: the card against the
+    CPU within P2P_ATOL, and ms a forward on the card."""
+    from t2onet_tpu_torch.models.common import init_torch_defaults
+    from t2onet_tpu_torch.models.pix2pixhd import define_generator
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (1, 3, 256, 256)).astype(np.float32))
+    xc = x.cuda()
+    out = {}
+    for kind in ("global", "local"):
+        net = define_generator(kind)
+        init_torch_defaults(net, torch.Generator().manual_seed(5))
+        net.eval()
+        card = copy.deepcopy(net).cuda()
+        with torch.no_grad():
+            err = float((card(xc).cpu() - net(x)).abs().max())
+
+            def fwd():
+                return card(xc)
+
+            ms = statistics.median(timed(fwd, n=10, warmup=3))
+        n_params = sum(p.numel() for p in net.parameters())
+        log(f"pix2pixhd {kind}: {n_params / 1e6:.2f}M params, 256², card vs "
+            f"CPU max abs {err:.2e} (bound {P2P_ATOL}); {ms:.2f} ms a forward "
+            f"(host clock, synchronised, median of 10)")
+        if not err <= P2P_ATOL:
+            fail(f"pix2pixhd {kind}: the card disagrees with the CPU ({err})")
+        out[kind] = {"max_abs_err": err, "ms": ms, "params": n_params}
+    return out
+
+
 PHASES = {"4b": eval_chain_phase, "serve_pipeline": serve_pipeline_phase,
           "http": http_phase, "inpaint": inpaint_phase,
-          "demo_plan": demo_plan_phase}
+          "demo_plan": demo_plan_phase, "gan": gan_phase,
+          "gan_plan": gan_plan_phase, "fid": fid_phase,
+          "pix2pixhd": pix2pixhd_phase}
 
 
 def run_phases(names):
@@ -3453,6 +3872,10 @@ def main(argv=None):
     hp = http_phase()
     ip = inpaint_phase()
     dp = demo_plan_phase()
+    gn = gan_phase()
+    gp = gan_plan_phase()
+    fd = fid_phase()
+    p2p = pix2pixhd_phase()
     # the planner runs no kernel: phases 14-15 checked that every count
     # stayed 0 (pf["launches"], pg["launches"])
     plan = {"plan_fivek": pf["launches"], "plan_gier": pg["launches"]}
@@ -3467,6 +3890,10 @@ def main(argv=None):
     new.update(serve_batcher=sp["launches"], serve_http=hp["launches"],
                serve_bench=hp["bench_launches"], train_inpaint=ip["launches"],
                demo=dp["launches"], plan_gier_inpaint=dp["plan_launches"])
+    # the GAN half's paths: the GAN trainer (its rollouts and validation),
+    # the disc planner (no kernel), the eval with FID
+    new.update(train_gan=gn["launches"], plan_fivek_disc=gp["launches"],
+               fid_eval=fd["launches"])
     chain_by_path = {"serve": serve_launches,
                      "train": train_launches["chain"],
                      "gier_train": gier_launches["chain"],
@@ -3552,7 +3979,8 @@ def main(argv=None):
         "modes": modes, "gier_modes": gm, "serve_r50": r50, "rl": rlr,
         "serve_pipeline": sp, "serve_http": {k: v for k, v in hp.items()
                                              if k != "bench"},
-        "serve_bench": hp["bench"], "inpaint": ip, "demo_plan": dp}
+        "serve_bench": hp["bench"], "inpaint": ip, "demo_plan": dp,
+        "gan": gn, "gan_plan": gp, "fid": fd, "pix2pixhd": p2p}
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,17 @@ the reference; tests hold this package to it.
 
 - `ops`     — operator math, the executor bank and the chain kernel.
 - `models`  — ResNet vision encoder, bi-LSTM request encoder, attention
-              decoder step and the actor's greedy rollout.
+              decoder step and the actor's greedy rollout; the inpaint
+              fillers; T2ONet+D's discriminator, VGG19 and pix2pixHD.
 - `serve`   — the serving engine: tokenize, decode at a probe
               resolution, execute the program at native resolution.
-- `convert` — carries a JAX actor's variables into the port's modules.
+- `convert` — carries a JAX actor's (and filler's and discriminator's)
+              variables, or a reference seq2seqGAN model.pth, into the
+              port's modules.
 - `planner` — the offline beam-search planner that writes the action
-              files the trainers learn from.
+              files the trainers learn from, by a pixel or a learned
+              distance.
+- `evals`   — L1, SSIM, FID (InceptionV3 features) and the gallery.
 
 Importing the package loads no kernel and starts nothing: kernels are
 built at their first launch on a CUDA tensor.

@@ -14,8 +14,10 @@ there the random init is evaluated, with a warning.
 On a CUDA device (`--device cuda`, the default; it raises where PyTorch
 finds no card) each rollout step executes through the fused step, whose
 forward is the chain kernel at K=1 (`--fused_exec`, -1: the kernels on
-CUDA, the bank on the CPU). FID, and with it the JAX CLI's
---fid_inception_ckpt and --fid_variant, waits for the InceptionV3 port.
+CUDA, the bank on the CPU). With `--fid_inception_ckpt` (InceptionV3
+weights under torchvision's names) the metrics add FID: the inputs' and
+the outputs' pool3 features against the ground truths'
+(`--fid_variant 1`, the default, is pytorch-fid's patched network).
 
   python -m t2onet_tpu_torch.cli.test_fivek --data_dir data_real_h2h \\
       --glove_path data_real_h2h_acts/FiveK_vocabs_glove_feat_1.npy \\
@@ -52,6 +54,18 @@ def _numpy(t):
     return None if t is None else t.cpu().numpy()
 
 
+def _features_fn(a, device):
+    """The FID extractor when --fid_inception_ckpt names weights, else
+    None (no FID, as the reference without the .pth)."""
+    ckpt = getattr(a, "fid_inception_ckpt", None)
+    if not ckpt:
+        return None
+    from t2onet_tpu_torch.evals.inception import load_fid_inception
+
+    return load_fid_inception(ckpt, device,
+                              fid_variant=bool(getattr(a, "fid_variant", 1)))
+
+
 def test_native_res(actor, ds, a, id2op, run_dir: str = "output/test",
                     visualize: bool = False, quantum: int = 64,
                     fused_exec: bool = False,
@@ -60,14 +74,16 @@ def test_native_res(actor, ds, a, id2op, run_dir: str = "output/test",
     over short-side-600 images): an image whose long side exceeds 1024 is
     downscaled with its ground truth first, then edge-padded to a
     `quantum` bucket and rolled out on the actor's device; the output is
-    cropped back and L1 and SSIM computed on the host at the true size.
+    cropped back and L1 and SSIM computed on the host at the true size
+    (and with --fid_inception_ckpt the three images' FID features).
     A gallery row every 25 pairs with `visualize`. `records`, when given,
     gets one dict per pair: its program (op ids), its metrics and the
     host-clock seconds of its stages (load: decode, resize, pad; rollout:
-    upload, the rollout and the readback of the output; metrics;
-    gallery)."""
+    upload, the rollout and the readback of the output; metrics, which
+    hold the FID features' features_s; gallery)."""
     device = _device(actor)
-    evaluator = ImageEvaluator(host_metrics=True)
+    evaluator = ImageEvaluator(host_metrics=True,
+                               features_fn=_features_fn(a, device))
     webpage = None
     if visualize:
         webpage = HTML(os.path.join(run_dir, "test", "web"),
@@ -123,7 +139,7 @@ def test(actor, ds, a, id2op, visualize: bool = False,
     batches of 16 with a short tail; metrics on the actor's device; a
     gallery row every 10 samples with `visualize`."""
     device = _device(actor)
-    evaluator = ImageEvaluator()
+    evaluator = ImageEvaluator(features_fn=_features_fn(a, device))
     webpage = None
     if visualize:
         webpage = HTML(os.path.join(run_dir, "test", "web"),
@@ -186,13 +202,21 @@ def eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default="best",
                    help="best, latest, or a checkpoint file")
     p.add_argument("--ckpt_name", default="seq2seqL1_model",
-                   help="checkpoint subdirectory of the run dir")
+                   help="checkpoint subdirectory of the run dir: "
+                        "seq2seqGAN_model evaluates a train_gan actor")
     p.add_argument("--skip_variance", action="store_true")
     p.add_argument("--fused_exec", type=int, default=-1, choices=(-1, 0, 1),
                    help="execute each rollout step through the fused step "
                         "(the chain kernel on CUDA) instead of the one-hot "
                         "bank. -1 (default): on for a CUDA device, off on "
                         "the CPU")
+    p.add_argument("--fid_inception_ckpt", default=None,
+                   help=".pth of InceptionV3 weights (torchvision names: "
+                        "pt_inception-2015-12-05 or torchvision's): adds "
+                        "FID")
+    p.add_argument("--fid_variant", type=int, default=1,
+                   help="1: pytorch-fid's patched network (the reference's "
+                        "default), 0: plain torchvision")
     return p
 
 

@@ -1,5 +1,8 @@
 """Weights bridge: a JAX `t2onet_tpu` actor's variables -> a port `Actor`
-(and a JAX `InpaintNet`'s -> the port's, `load_jax_inpaint`).
+(and a JAX `InpaintNet`'s -> the port's, `load_jax_inpaint`; a JAX
+`DiscBundle`'s -> the port's discriminator and condition encoder,
+`load_jax_disc`; a reference seq2seqGAN `model.pth` by its own names,
+`load_torch_gan_checkpoint`).
 
 The inverse of `t2onet_tpu/convert/torch_checkpoint.py:convert_state_dict`
 (which reads the reference checkpoint's names, and so the port's):
@@ -177,3 +180,89 @@ def load_jax_inpaint(net, params: Dict) -> None:
             raise ValueError(f"{k}: net has {tuple(own[k].shape)}, "
                              f"weights have {v.shape}")
         own[k].copy_(torch.from_numpy(v))
+
+
+def disc_variables_to_state_dict(params: Dict, batch_stats: Dict,
+                                 n_layers_D: int = 3
+                                 ) -> Dict[str, np.ndarray]:
+    """A JAX `DiscBundle`'s (params, batch_stats) trees -> the port's
+    `models.gan.DiscBundle` state_dict arrays. Per scale, flax's Conv_j
+    is layer j's conv (`netD.scale{i}_layer{j}.0`) and BatchNorm_k the
+    BatchNorm of layer k + 1 (`.1`), as the reference's layout
+    (`t2onet_tpu/convert/torch_checkpoint.py:convert_gan_state_dict`)
+    states; flax's Dense_0 / BatchNorm_0 are `cond_encoder.fc.0` /
+    `.1`."""
+    sd: Dict[str, np.ndarray] = {}
+    disc_p, disc_s = params["disc"], batch_stats["disc"]
+    for scale in sorted(disc_p):
+        sp, ss = disc_p[scale], disc_s.get(scale, {})
+        for j in range(n_layers_D + 3):
+            pre = f"netD.{scale}_layer{j}"
+            sd[f"{pre}.0.weight"] = _oihw(sp[f"Conv_{j}"]["kernel"])
+            sd[f"{pre}.0.bias"] = sp[f"Conv_{j}"]["bias"]
+            if 0 < j < n_layers_D + 2:
+                _bn(sd, f"{pre}.1", sp[f"BatchNorm_{j - 1}"],
+                    ss[f"BatchNorm_{j - 1}"])
+    cp, cs = params["cond"], batch_stats["cond"]
+    sd["cond_encoder.fc.0.weight"] = _t(cp["Dense_0"]["kernel"])
+    sd["cond_encoder.fc.0.bias"] = cp["Dense_0"]["bias"]
+    _bn(sd, "cond_encoder.fc.1", cp["BatchNorm_0"], cs["BatchNorm_0"])
+    return {k: np.array(v, np.float32) for k, v in sd.items()}
+
+
+def _copy_into(module, sd: Dict[str, np.ndarray], what: str) -> None:
+    """Copy `sd` into `module`'s tensors: every tensor but the BatchNorm
+    counters must be covered, and every array must fit its shape."""
+    own = module.state_dict()
+    missing = [k for k in own
+               if k not in sd and not k.endswith("num_batches_tracked")]
+    unknown = [k for k in sd if k not in own]
+    if missing or unknown:
+        raise KeyError(f"weights do not match the {what}: missing "
+                       f"{missing[:5]}, unknown {unknown[:5]}")
+    for k, v in sd.items():
+        v = torch.as_tensor(np.asarray(v, np.float32))
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"{k}: {what} has {tuple(own[k].shape)}, "
+                             f"weights have {tuple(v.shape)}")
+        own[k].copy_(v)
+
+
+@torch.no_grad()
+def load_jax_disc(bundle, params: Dict, batch_stats: Dict) -> None:
+    """Fill a port `DiscBundle` in place from a JAX DiscBundle's params
+    and batch_stats (numpy arrays)."""
+    _copy_into(bundle, disc_variables_to_state_dict(
+        params, batch_stats, bundle.netD.n_layers), "discriminator")
+
+
+def fold_lstm_biases(sd: Dict) -> Dict:
+    """A reference actor state_dict with the port's one LSTM bias:
+    bias_ih + bias_hh in bias_ih and 0 in bias_hh (the same sums)."""
+    sd = dict(sd)
+    for k in list(sd):
+        if ".rnn.bias_hh_" in k:
+            ih = k.replace("bias_hh_", "bias_ih_")
+            sd[ih] = sd[ih] + sd[k]
+            sd[k] = sd[k] * 0
+    return sd
+
+
+@torch.no_grad()
+def load_torch_gan_checkpoint(path: str, actor=None, bundle=None) -> None:
+    """Load a reference seq2seqGAN model.pth (the whole-model state_dict
+    of train_seq2seqGAN.py:129) by its own names: `actor.*` into `actor`
+    (the LSTM biases folded, `fold_lstm_biases`) and `netD.*` and
+    `cond_encoder.*` into `bundle`. Either may be None; what it names
+    must be covered whole."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {k: v.float() for k, v in sd.items()
+          if not k.endswith("num_batches_tracked")}
+    if actor is not None:
+        part = {k[len("actor."):]: v for k, v in sd.items()
+                if k.startswith("actor.")}
+        _copy_into(actor, fold_lstm_biases(part), "actor")
+    if bundle is not None:
+        part = {k: v for k, v in sd.items()
+                if k.startswith(("netD.", "cond_encoder."))}
+        _copy_into(bundle, part, "discriminator")

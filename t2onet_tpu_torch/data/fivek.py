@@ -1,9 +1,12 @@
 """FiveK readers (counterpart of `t2onet_tpu.data.fivek`): the square
 training image and the short-side-600 eval image, the planner
 trajectory's truncation, the planner JSON -> (ops, params) parse, the
-image-pair dataset (`FiveK`) and the train split's dataset with the
+image-pair dataset (`FiveK`), the train split's dataset with the
 planner's actions (`FiveKAct`, read from
-`{act_dir}/{phase}{i}/{i:05d}.json` and its per-step edit JPEGs).
+`{act_dir}/{phase}{i}/{i:05d}.json` and its per-step edit JPEGs), and
+its whole-sequence views at inference resolution (`FiveKActVisualize`,
+and `FiveKActDVisualize` for the disc planner's
+`seq2seqGAN-disc_ops.json`).
 
 Images are read as the reference reads them: cv2 (imported where it is
 used), BGR -> RGB, CHW, resized with cv2's default bilinear resize on
@@ -251,3 +254,39 @@ class FiveKAct(FiveK):
                 "gt_params": np.stack([it[4] for it in items]),
                 "req": [it[5] for it in items],
             }
+
+
+class FiveKActVisualize(FiveKAct):
+    """The inference-resolution variant without trajectory truncation
+    (reference FiveKdataset.py:138-200): short-side-600 images, the top
+    planner sequence kept whole (up to op_max_len), no step images.
+    Items: (input, output, request ids, ops, params, request)."""
+
+    act_json_name = None          # default: {item:05d}.json
+
+    def get_act(self, item: int):
+        item_dir = os.path.join(self.act_dir, f"{self.phase}{item}")
+        name = self.act_json_name or f"{item:05d}.json"
+        with open(os.path.join(item_dir, name)) as f:
+            act = json.load(f)
+        op_seq, params, _ = parse_action_json(act, self.op_max_len,
+                                              truncate=False)
+        return op_seq, params
+
+    def __getitem__(self, item: int):
+        d = self.data[item]
+        input_img = load_infer_img_short_size_bounded(
+            os.path.join(self.img_dir, d["input"]), 600)
+        output_img = load_infer_img_short_size_bounded(
+            os.path.join(self.img_dir, d["output"]), 600)
+        ops, params = self.get_act(item)
+        return (input_img, output_img,
+                np.asarray(d["request_idx"], np.int64), ops, params,
+                d["request"])
+
+
+class FiveKActDVisualize(FiveKActVisualize):
+    """The discriminator planner's variant: reads each item's
+    `seq2seqGAN-disc_ops.json` (reference FiveKdataset.py:203-265)."""
+
+    act_json_name = "seq2seqGAN-disc_ops.json"

@@ -5,15 +5,17 @@ protocol).
 SSIM runs on the tensors' device as depthwise convolutions with an
 11-px Gaussian window (sigma 1.5), zero-padded 'same', its statistics in
 f64; `ssim_np` is the same formula on the host (scipy, f64), for
-native-resolution eval where every sample has its own shape. The Frechet distance is host numpy/scipy.
-FID's feature extractor (InceptionV3) is not ported yet, so the
-evaluator computes L1 and SSIM only.
+native-resolution eval where every sample has its own shape. The
+Frechet distance is host numpy/scipy; FID's features come from a
+`features_fn` (`evals.inception`).
 """
 
 from __future__ import annotations
 
 import math
+import time
 import warnings
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -143,13 +145,20 @@ def calculate_frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6
 
 class ImageEvaluator:
     """Running means of L1 and SSIM, input and output each against the
-    ground truth (reference eval.py:13-90). With host_metrics the
-    images are numpy and SSIM is `ssim_np`; else they are tensors (numpy
-    is taken as CPU tensors) and SSIM is `ssim` on their device."""
+    ground truth, and with `features_fn` the corpus FID of the inputs and
+    of the outputs against the ground truths (reference eval.py:13-90).
+    With host_metrics the images are numpy and SSIM is `ssim_np`; else
+    they are tensors (numpy is taken as CPU tensors) and SSIM is `ssim`
+    on their device.
 
-    def __init__(self, window_size: int = 11, host_metrics: bool = False):
+    :param features_fn: (N, 3, H, W) -> (N, D) numpy features for FID
+        (`evals.inception.load_fid_inception`), or None for no FID."""
+
+    def __init__(self, window_size: int = 11, host_metrics: bool = False,
+                 features_fn: Optional[Callable] = None):
         self.window_size = window_size
         self.host_metrics = host_metrics
+        self.features_fn = features_fn
         self.reset()
 
     def reset(self):
@@ -158,6 +167,9 @@ class ImageEvaluator:
         self.avg_in_L1 = 0.0
         self.avg_out_SSIM = 0.0
         self.avg_in_SSIM = 0.0
+        self.arrs_in: List[np.ndarray] = []
+        self.arrs_out: List[np.ndarray] = []
+        self.arrs_gt: List[np.ndarray] = []
 
     def update(self, inp, out, gt) -> dict:
         """inp, out, gt: (1, 3, H, W) in [0, 1]. Returns this pair's
@@ -181,8 +193,26 @@ class ImageEvaluator:
         self.avg_out_L1 += (out_l1 - self.avg_out_L1) * r
         self.avg_in_SSIM += (in_ss - self.avg_in_SSIM) * r
         self.avg_out_SSIM += (out_ss - self.avg_out_SSIM) * r
-        return {"in_L1": in_l1, "out_L1": out_l1, "in_SSIM": in_ss,
-                "out_SSIM": out_ss}
+        m = {"in_L1": in_l1, "out_L1": out_l1, "in_SSIM": in_ss,
+             "out_SSIM": out_ss}
+        if self.features_fn is not None:
+            t0 = time.perf_counter()
+            self.arrs_in.append(np.asarray(self.features_fn(inp)))
+            self.arrs_out.append(np.asarray(self.features_fn(out)))
+            self.arrs_gt.append(np.asarray(self.features_fn(gt)))
+            m["features_s"] = time.perf_counter() - t0
+        return m
+
+    def calc_fid(self):
+        """(FID of the inputs, FID of the outputs), each against the
+        ground truths' features; (None, None) without features."""
+        if not self.arrs_gt:
+            return None, None
+        stats = [(a.mean(0), np.cov(a, rowvar=False)) for a in
+                 (np.concatenate(arrs, 0) for arrs in
+                  (self.arrs_in, self.arrs_out, self.arrs_gt))]
+        return (calculate_frechet_distance(*stats[0], *stats[2]),
+                calculate_frechet_distance(*stats[1], *stats[2]))
 
     def eval(self) -> dict:
         res = {
@@ -193,4 +223,8 @@ class ImageEvaluator:
               f"output L1 dist {res['out_L1']:.4f}")
         print(f"input SSIM {res['in_SSIM']:.4f}, "
               f"output SSIM {res['out_SSIM']:.4f}")
+        fid_in, fid_out = self.calc_fid()
+        if fid_in is not None:
+            res["in_FID"], res["out_FID"] = fid_in, fid_out
+            print(f"input FID {fid_in:.4f}, output FID {fid_out:.4f}")
         return res

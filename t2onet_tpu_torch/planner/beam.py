@@ -8,9 +8,10 @@ Arrays come in and go out as numpy; `device` says where the fits run
 (the card unless the caller asks for the CPU).
 
 A trained inpaint filler (`beam_search(inpaint_fn=)`) evaluates the
-inpaint candidate directly. Not ported yet: learned distances
-(`score_fn`) wait for the GAN port (ROADMAP A5), and sharded planning
-(`mesh`) for multi-GPU (A6); each raises NotImplementedError.
+inpaint candidate directly. A learned distance (`beam_search(score_fn=,
+score_aux=)`, the 'seq2seqGAN-disc' planner) scores candidates in place
+of the pixel distance. Not ported yet: sharded planning (`mesh`), which
+waits for multi-GPU (ROADMAP A6) and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,11 +35,7 @@ def _dev(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def _unported(score_fn=None, mesh=None):
-    if score_fn is not None:
-        raise NotImplementedError(
-            "learned-distance planning (score_fn) waits for the GAN port "
-            "(ROADMAP A5)")
+def _unported(mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             "sharded planning (mesh) waits for the multi-GPU port "
@@ -46,19 +43,26 @@ def _unported(score_fn=None, mesh=None):
 
 
 def _fit_step(I_buff: np.ndarray, target, op_slots, n_starts, n_iters, lr,
-              init_key, op_masks=None, dist_type="l1", device="cuda"):
-    """One fit of all (beam, op, start) candidates. Returns (params
-    (N,C,24), dists (N,C), outs (N,C,3,H,W)) as numpy, and the candidate
-    op index per column."""
+              init_key, op_masks=None, dist_type="l1", device="cuda",
+              score_fn=None, score_aux=None):
+    """One fit of all (beam, op, start) candidates, by the pixel distance
+    to `target` or, with `score_fn`, by the learned distance. Returns
+    (params (N,C,24), dists (N,C), outs (N,C,3,H,W)) as numpy, and the
+    candidate op index per column."""
     op_slots = tuple(int(op) for op in op_slots)
     cand_ops = Fit.candidate_op_slots(op_slots, n_starts)
     init = _dev(Fit.init_candidates(op_slots, n_starts, key=init_key),
                 device)
-    imgs, tgt = _dev(I_buff, device), _dev(target, device)
+    imgs = _dev(I_buff, device)
     masks = _op_mask_rows(op_masks, op_slots, I_buff.shape[-2:], device)
-    params, dists = Fit.fit_op_params_sel(
-        imgs, tgt, init, op_slots, n_starts, n_iters=n_iters, lr=lr,
-        masks=masks, dist=dist_type)
+    if score_fn is not None:
+        params, dists = Fit.fit_op_params_scored_sel(
+            imgs, init, op_slots, n_starts, score_fn, score_aux,
+            n_iters=n_iters, lr=lr, masks=masks)
+    else:
+        params, dists = Fit.fit_op_params_sel(
+            imgs, _dev(target, device), init, op_slots, n_starts,
+            n_iters=n_iters, lr=lr, masks=masks, dist=dist_type)
     outs = Fit.execute_candidates_sel(imgs, params, op_slots, n_starts,
                                       masks)
     return (params.cpu().numpy(), dists.cpu().numpy(), outs.cpu().numpy(),
@@ -94,8 +98,7 @@ def normalize_dist_type(dist_type: str) -> str:
     if d not in ("l1", "l2"):
         raise ValueError(
             f"dist_type {dist_type!r} invalid — 'l1'/'l2' here; learned "
-            "distances ('seq2seqGAN-disc') wait for the GAN port "
-            "(ROADMAP A5)")
+            "distances ('seq2seqGAN-disc') go through score_fn")
     return d
 
 
@@ -116,6 +119,7 @@ def beam_search(
     op_masks=None,
     dist_type: str = "l1",
     score_fn=None,
+    score_aux=None,
     inpaint_fn=None,
     device="cuda",
 ) -> Tuple[List[List[Tuple[str, list, float]]], List[List[np.ndarray]]]:
@@ -127,6 +131,11 @@ def beam_search(
     :param op_masks: optional {executor_op_idx: (1, H, W) float mask} for
         local (masked) ops, the GIER planner's mask conditioning.
     :param dist_type: 'l1' or 'l2' pixel distance ('L1'/'L2' accepted).
+    :param score_fn, score_aux: a learned candidate distance in place of
+        the pixel distance, the 'seq2seqGAN-disc' planner (reference
+        beam_search.py:226-236): `models.gan.make_disc_planner_score`,
+        with score_aux (I_0, cond) as tensors on `device`. I_gt is then
+        not read.
     :param inpaint_fn: a trained filler for the inpaint op, (B, 3, H, W)
         -> (B, 3, H, W) tensors on `device`, its hole mask captured
         (`models.inpaint.make_inpaint_fn`,
@@ -137,17 +146,17 @@ def beam_search(
     :return: (actions, images): actions[b] = [(op_name, params, dist),
         ...] per beam; images[b] = the per-step edited images (1,3,H,W).
     """
-    _unported(score_fn)
     if mode not in ("plain", "eps", "fixed"):
         raise ValueError(f"unknown beam-search mode {mode!r} "
                          "(want plain | eps | fixed)")
     rng = np.random.default_rng(seed)
-    dist_type = normalize_dist_type(dist_type)
+    dist_type = normalize_dist_type(dist_type) if score_fn is None else "l1"
     if mode == "fixed":
         beam_size = 1
-    # device-side top-k selection needs no eps randomization (which
+    # device-side top-k selection needs a pixel distance (the learned one
+    # takes the all-candidates path) and no eps randomization (which
     # permutes over all candidates)
-    fused = mode in ("plain", "fixed")
+    fused = mode in ("plain", "fixed") and score_fn is None
 
     min_dist = float("inf")
     sequences: List[Tuple[list, float]] = [([], float("inf"))]
@@ -165,10 +174,14 @@ def beam_search(
         inp_outs = inp_dists = None
         if inpaint_fn is not None and INPAINT in step_ops:
             with torch.no_grad():
-                inp_outs = inpaint_fn(_dev(I_buff, device)).cpu().numpy()
-            if dist_type == "l2":
+                filled = inpaint_fn(_dev(I_buff, device))
+                if score_fn is not None:
+                    inp_dists = score_fn(filled[:, None],
+                                         score_aux)[:, 0].cpu().numpy()
+            inp_outs = filled.cpu().numpy()
+            if score_fn is None and dist_type == "l2":
                 inp_dists = ((inp_outs - I_gt) ** 2).mean(axis=(1, 2, 3))
-            else:
+            elif score_fn is None:
                 inp_dists = np.abs(inp_outs - I_gt).mean(axis=(1, 2, 3))
         fit_ops = [op for op in step_ops
                    if not (op == INPAINT and inp_outs is not None)]
@@ -236,7 +249,8 @@ def beam_search(
                 params, dists, outs, cand_ops = _fit_step(
                     I_buff, I_gt, fit_ops, n_starts, n_iters, lr,
                     init_key=seed + step, op_masks=op_masks,
-                    dist_type=dist_type, device=device)
+                    dist_type=dist_type, device=device, score_fn=score_fn,
+                    score_aux=score_aux)
             else:                                 # inpaint-only search
                 cand_ops = np.empty(0, np.int64)
             for j in range(n_beam):

@@ -12,8 +12,10 @@ independent optimisers. Column block i of the C columns runs only
 op_slots[i]'s pixel math. Plain autograd, as the JAX planner is plain
 jnp: no kernel runs here.
 
-The learned-distance fits (`fit_op_params_scored*`) wait for the GAN
-port.
+The learned-distance fits (`fit_op_params_scored*`) score each
+candidate's edited image with a differentiable `score_fn` (the planner's
+'seq2seqGAN-disc' distance, `models.gan.make_disc_planner_score`) in
+place of the pixel distance to a target.
 """
 
 from __future__ import annotations
@@ -98,6 +100,24 @@ def _apply_selected(imgs, params, op_slots, n_starts, masks=None):
     return torch.cat(outs, dim=1)
 
 
+def _apply_candidates(imgs, onehot, params, masks=None):
+    """Every candidate through the bank's one-hot blend: imgs (N,3,H,W),
+    onehot (C, 9), params (N,C,24) -> (N,C,3,H,W). masks: per-candidate
+    edit masks, (C, 1, H, W) shared across rows or (N, C, 1, H, W)."""
+    n, _, h, w = imgs.shape
+    c = onehot.shape[0]
+    x = imgs[:, None].expand(n, c, 3, h, w).reshape(n * c, 3, h, w)
+    oh = onehot[None].expand(n, c, onehot.shape[1]).reshape(n * c, -1)
+    m = None
+    if masks is not None:
+        if masks.ndim == 4:
+            masks = masks[None].expand(n, c, 1, h, w)
+        m = masks.reshape(n * c, 1, h, w)
+    out = bank.execute_onehot(x, oh, params.reshape(n * c, bank.MAX_PARAM),
+                              mask=m)
+    return out.reshape(n, c, 3, h, w)
+
+
 def _sel_dist_fn(imgs, targets_b, op_slots, n_starts, masks, dist):
     def per_candidate_dist(params):
         out = _apply_selected(imgs, params, op_slots, n_starts, masks)
@@ -169,6 +189,43 @@ def fit_op_params_sel(imgs, targets, init_params, op_slots, n_starts,
     fn = _sel_dist_fn(imgs, targets_b, tuple(op_slots), n_starts, masks,
                       dist)
     return _adam_fit(fn, init, n_iters, lr)
+
+
+def fit_op_params_scored(imgs, onehot, init_params, score_fn, score_aux,
+                         n_iters: int = 100, lr: float = 0.05, masks=None):
+    """Fit params against a learned per-candidate distance (reference
+    beam_search.py:183-193, dist_type 'seq2seqGAN-disc'): each
+    candidate's bank output is scored by `score_fn(outs (N,C,3,H,W),
+    score_aux) -> (N, C)` (lower is better), differentiable in outs.
+
+    :param onehot: (C, 9) bank weights per candidate (slot 0 identity).
+    :param init_params: (N, C, 24) or (C, 24).
+    :return: (params (N, C, 24), dists (N, C))."""
+    n, c = imgs.shape[0], onehot.shape[0]
+
+    def per_candidate_dist(params):
+        return score_fn(_apply_candidates(imgs, onehot, params, masks),
+                        score_aux)
+
+    return _adam_fit(per_candidate_dist, _broadcast_init(init_params, n, c),
+                     n_iters, lr)
+
+
+def fit_op_params_scored_sel(imgs, init_params, op_slots, n_starts,
+                             score_fn, score_aux, n_iters: int = 100,
+                             lr: float = 0.05, masks=None):
+    """`fit_op_params_scored` with each column block running only its op
+    (`_apply_selected`; masks in the per-op layout)."""
+    n = imgs.shape[0]
+    c = len(op_slots) * n_starts
+    op_slots = tuple(op_slots)
+
+    def per_candidate_dist(params):
+        return score_fn(_apply_selected(imgs, params, op_slots, n_starts,
+                                        masks), score_aux)
+
+    return _adam_fit(per_candidate_dist, _broadcast_init(init_params, n, c),
+                     n_iters, lr)
 
 
 @torch.no_grad()

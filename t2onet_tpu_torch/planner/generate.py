@@ -34,16 +34,18 @@ def plan_pair(img_x: np.ndarray, img_y: np.ndarray, request: str,
               max_step: Optional[int] = None, err: float = 1e-2,
               mode: str = "plain", n_starts: int = 2, n_iters: int = 100,
               lr: float = 0.05, seed: int = 0, dist_type: str = "l1",
-              device="cuda") -> dict:
+              score_fn=None, score_aux=None, device="cuda") -> dict:
     """Plan one (input, target) pair and write its JSON and edit
-    images; the beam search's seed is `seed + index`."""
+    images; the beam search's seed is `seed + index`. dist_type, or
+    score_fn with score_aux, select the candidate distance (see
+    planner.beam.beam_search)."""
     if max_step is None:
         max_step = len(operations)
     actions, images = beam_search(
         img_x, img_y, beam_size=beam_size, operations=operations,
         max_step=max_step, err=err, mode=mode, n_starts=n_starts,
         n_iters=n_iters, lr=lr, seed=seed + index, dist_type=dist_type,
-        device=device)
+        score_fn=score_fn, score_aux=score_aux, device=device)
     return _write_item(out_dir, phase, index, request, img_x, img_y,
                        actions, images)
 
@@ -70,16 +72,22 @@ def _write_item(out_dir, phase, index, request, img_x, img_y, actions,
 
 def plan_dataset(pairs: Iterable, out_dir: str, phase: str = "train",
                  limit: Optional[int] = None, log_every: int = 10,
-                 start_index: int = 0, **plan_kwargs):
+                 start_index: int = 0, score_aux_fn=None, **plan_kwargs):
     """Plan over an iterable of (img_x (1,3,H,W), img_y, request) tuples,
     one pair at a time. `start_index` keeps the written item indices
-    global when `pairs` starts mid-dataset."""
+    global when `pairs` starts mid-dataset. `score_aux_fn(img_x,
+    request)` gives each pair's score_aux for a learned distance
+    (score_fn in plan_kwargs): the source image and the request's
+    condition code."""
     os.makedirs(out_dir, exist_ok=True)
     avg_time, n = 0.0, 0
     for i, (img_x, img_y, request) in enumerate(pairs):
         if limit is not None and i >= limit:
             break
         tik = time.time()
+        if score_aux_fn is not None:
+            plan_kwargs["score_aux"] = score_aux_fn(np.asarray(img_x),
+                                                    request)
         plan_pair(np.asarray(img_x), np.asarray(img_y), request, out_dir,
                   start_index + i, phase=phase, **plan_kwargs)
         n += 1

@@ -187,14 +187,16 @@ class ServingEngine:
 
     def _prep_img(self, image) -> np.ndarray:
         """f32 [0,1] CHW; an image whose long side exceeds max_side is
-        downscaled, aspect kept — never cropped."""
+        downscaled, aspect kept — never cropped. The downscale weighs in
+        f64 and casts back, as the native resize of the JAX engine does
+        (an f32 resize sits up to 9e-5 from it)."""
         img = np.asarray(image, np.float32)
         h, w = img.shape[1], img.shape[2]
         if max(h, w) > self.max_side:
             scale = self.max_side / max(h, w)
             nh, nw = max(round(h * scale), 1), max(round(w * scale), 1)
-            img = resize_bilinear(torch.from_numpy(img)[None], nh, nw)[0] \
-                .numpy()
+            img64 = torch.from_numpy(img.astype(np.float64))[None]
+            img = resize_bilinear(img64, nh, nw)[0].numpy().astype(np.float32)
         return img
 
     def _host(self, shape, dtype):

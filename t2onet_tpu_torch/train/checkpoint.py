@@ -148,3 +148,27 @@ class CheckpointManager:
         if generator is not None and "generator" in blob:
             generator.set_state(blob["generator"])
         return state
+
+
+class StateCheckpointer:
+    """State that rides beside the actor's checkpoints (the GAN trainer's
+    discriminator, and the G and D optimizers' moments), one `torch.save`
+    blob a step in a directory of its own: `checkpoint_iter{itr:08d}.pt`
+    and, with `best`, `checkpoint_best.pt`."""
+
+    def __init__(self, ckpt_dir: str, max_to_keep: Optional[int] = None):
+        self.ckpt_dir = os.path.abspath(ckpt_dir)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+
+    def save(self, blob, itr: int, best: bool = False):
+        _save(blob, os.path.join(self.ckpt_dir,
+                                 f"checkpoint_iter{itr:08d}.pt"))
+        if best:
+            _save(blob, os.path.join(self.ckpt_dir, "checkpoint_best.pt"))
+        _prune_old(self.ckpt_dir, self.max_to_keep)
+
+    def restore(self, which: str = "best"):
+        """The blob saved as 'best', 'latest' or at a path, on the host."""
+        return torch.load(_resolve_ckpt_path(self.ckpt_dir, which),
+                          map_location="cpu", weights_only=True)

@@ -148,6 +148,61 @@ def _unfreeze(tree):
     return tree
 
 
+def plain(tree):
+    """A (frozen) variable tree as nested dicts of f32 numpy arrays."""
+    if hasattr(tree, "items"):
+        return {k: plain(v) for k, v in tree.items()}
+    return np.asarray(tree, np.float32)
+
+
+def jax_disc(cond_nc, ndf, b, hw, n_layers, hidden, seed=1):
+    """A JAX `train_gan.DiscBundle` (n_layers_D 3, num_D 2) and numpy
+    (params, batch_stats): the trees its init makes (traced with
+    eval_shape), filled with seeded draws at torch-default scales; every
+    BatchNorm gets a non-trivial scale, bias, mean and var. `hidden` is
+    the encoder's 2H, over `n_layers` layers."""
+    import jax
+    import jax.numpy as jnp
+
+    from t2onet_tpu.cli.train_gan import DiscBundle
+
+    jb = DiscBundle(cond_nc=cond_nc, ndf=ndf, n_layers=3, num_D=2)
+    shapes = jax.eval_shape(jb.init, jax.random.PRNGKey(0),
+                            jnp.zeros((b, 6, hw, hw)),
+                            jnp.zeros((n_layers, b, hidden)))
+    rng = np.random.default_rng(seed)
+
+    def fill(p):
+        out = {}
+        for k in sorted(p):
+            v = p[k]
+            if k.startswith("BatchNorm"):
+                n = v["scale"].shape
+                out[k] = {"scale": rng.uniform(0.8, 1.2, n),
+                          "bias": rng.normal(0, 0.1, n)}
+            elif "kernel" in v:
+                lim = 1.0 / np.sqrt(np.prod(v["kernel"].shape[:-1]))
+                out[k] = {"kernel": rng.uniform(-lim, lim, v["kernel"].shape),
+                          "bias": rng.uniform(-lim, lim, v["bias"].shape)}
+            else:
+                out[k] = fill(v)
+        return out
+
+    def stats_of(p):
+        out = {}
+        for k in sorted(p):
+            if k.startswith("BatchNorm"):
+                n = p[k]["scale"].shape
+                out[k] = {"mean": rng.normal(0, 0.1, n),
+                          "var": rng.uniform(0.5, 1.5, n)}
+            elif "kernel" not in p[k]:
+                out[k] = stats_of(p[k])
+        return out
+
+    params = plain(fill(_unfreeze(shapes[0])))
+    return jb, params, plain(stats_of(params))
+
+
 def port_actor(cfg, vocab_size, params, stats):
     """The port's Actor at the same config, loaded from JAX variables."""
     import dataclasses

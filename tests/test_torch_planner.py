@@ -248,12 +248,13 @@ def test_beam_search_matches_jax(mode):
 
 
 def test_unported_arguments_raise():
+    """Sharded planning waits for multi-GPU (A6). A learned distance is
+    no pixel dist_type, as in JAX: it goes through score_fn, which
+    beam_search takes (tests/test_torch_gan_planner.py)."""
     x, y, _ = fivek_pairs(1)
-    with pytest.raises(NotImplementedError, match="A5"):
-        beam.beam_search(x, y, score_fn=lambda o, a: o, device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         beam.batch_beam_search(x, y, mesh=object(), device="cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="score_fn"):
         beam.normalize_dist_type("seq2seqGAN-disc")
     assert beam.normalize_dist_type("L2") == "l2"
 
@@ -358,15 +359,26 @@ def test_plan_fivek_cli_matches_jax(tmp_path):
     assert os.path.exists(tmp_path / "port" / "train1" / "00001.json")
 
 
-@pytest.mark.parametrize("flag", [
-    ["--dist_type", "seq2seqGAN-disc"], ["--disc_run_dir", "x"],
-    ["--torch_gan_ckpt", "x"], ["--data_parallel", "2"]])
+@pytest.mark.parametrize("flag", [["--data_parallel", "2"]])
 def test_plan_fivek_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         plan_fivek.plan_parser().parse_args(flag)
     err = capsys.readouterr().err
-    assert flag[0] in err or flag[1] in err
-    assert "A5" in err or "A6" in err
+    assert flag[0] in err and "A6" in err
+
+
+@pytest.mark.parametrize("flag, dest, value", [
+    (["--dist_type", "seq2seqGAN-disc"], "dist_type", "seq2seqgan-disc"),
+    (["--dist_type", "disc"], "dist_type", "seq2seqgan-disc"),
+    (["--disc_run_dir", "x"], "disc_run_dir", "x"),
+    (["--torch_gan_ckpt", "x"], "torch_gan_ckpt", "x")])
+def test_plan_fivek_takes_the_disc_flags(flag, dest, value):
+    """The learned distance's flags parse; plan_gier's --dist_type stays
+    a pixel distance, as JAX's."""
+    assert getattr(plan_fivek.plan_parser().parse_args(flag), dest) == value
+    with pytest.raises(SystemExit):
+        plan_gier.plan_parser().parse_args(["--dist_type",
+                                            "seq2seqGAN-disc"])
 
 
 @pytest.mark.parametrize("flag", ["--inpaint_ckpt", "--edgeconnect_dir"])

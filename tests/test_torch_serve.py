@@ -144,6 +144,22 @@ def test_oversize_image_downscaled(engines):
     assert float(r.image[:, :, -1].mean()) > float(r.image[:, :, 0].mean())
 
 
+@pytest.mark.parametrize("hw", [(1200, 1800), (1365, 2048)])
+def test_prep_img_matches_jax_engine(engines, hw):
+    """An oversize image's downscale to a 1024 long side, the port's
+    (F.interpolate in f64, cast to f32) against the JAX engine's native
+    resize (double weights), on tiles of real FiveK pixels: within 1e-6.
+    The same resize in f32 sits 1.2e-5 away at 1200x1800."""
+    jax_eng, port_eng = engines[0], engines[2]
+    assert jax_eng.max_side == port_eng.max_side == 1024
+    for img in jpeg_images(*hw):
+        want = jax_eng._prep_img(img)
+        got = port_eng._prep_img(img)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        assert max(got.shape[1:]) == 1024
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
 def test_cuda_engine_without_card_raises(engines):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
