@@ -4,6 +4,7 @@ on one CUDA card.
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 4b,serve_pipeline,http,inpaint,demo_plan
     python3 chip_smoke.py --phases gan,gan_plan,fid,pix2pixhd
+    python3 chip_smoke.py --phases dp,mesh_serve,mesh_plan
 
 The second form runs the named phases alone after phases 1-3 (the
 eval's checkpoint that demo_plan reads is written without the eval) and
@@ -160,7 +161,7 @@ line. Phases (any failure exits non-zero): (any failure exits non-zero):
    the input's shape), /healthz, 404 and 400; `cli.serve --bench 64
    --img_size 512` and its JSON line;
 23. inpaint: `cli.train_inpaint` on data_real_h2h at the CLI's defaults
-   for 200 iterations (finite falling loss, a checkpoint, held-out hole
+   for 100 iterations (finite falling loss, a checkpoint, held-out hole
    L1 below the blanked hole's); the train step's time; one step card
    against CPU from the same weights (loss 1e-5 relative; the card's
    gradients within 1e-5 of their norm of the CPU's f64 ones, each tensor
@@ -198,7 +199,35 @@ line. Phases (any failure exits non-zero): (any failure exits non-zero):
    against CPU within 1e-4 of their norm;
 28. pix2pixhd: `define_generator('global')` and `('local')` at their
    defaults on one 256² image, card against CPU within 1e-4, ms a
-   forward.
+   forward;
+29. dp: (a) `cli.train_fivek --synthetic --data_parallel 1` at full
+   width, b64, 128 px, 4 iterations, in this process as rank 0 of a
+   world of 1 on NCCL (torchrun's environment set here), against the
+   same run without a group: the final weights bit for bit, B1 = B3 = 5
+   an episode iteration plus 5 B1 for the validation batch; an episode
+   step's host and device ms with and without the group; the cross-rank
+   BatchNorm's all-reduces an episode step would make, and one NCCL
+   all-reduce's host clock at world size 1; (b) two ranks on cuda:0 over
+   gloo (`parallel.workers`; both build the kernels cold into one fresh
+   directory at once), 32 rows a rank of a global b64 at full width, 128
+   px, the same noise fed: one supervised, one fused FiveK episode and
+   one fused GIER masked episode step (real data), each held to the same
+   step in one process within phase 9's bounds, the ranks' weights equal
+   bit for bit; B1 5 + B3 5, then B2 8 + B4 8 a rank;
+30. mesh_serve: `fused_chain_sharded` over [cuda:0, cuda:0] (plus every
+   further card) against `fused_chain` at b128 x 512² x K5, unmasked and
+   masked: bit-exact, one launch a shard; phase 7's actor behind
+   `ServingEngine(mesh=)`, max_batch 8, 32 requests over two buckets:
+   the single engine's programs, images within one level, one B1 a shard
+   a micro-batch; req/s beside the single engine's;
+31. mesh_plan: `batch_beam_search(mesh=[cuda:0, cuda:0])` on phase 14's
+   16 FiveK pairs at b8 lockstep: each shard's plans bit for bit the
+   single card's plans of that shard's pairs alone, and held to the
+   single card's b8 plans as phase 14 holds plans (another batch size
+   sums the fits' reductions in another order): where the ops agree,
+   each step's distance within PLAN_DIST_TOL; where they part, the final
+   distances within MESH_PART_TOL; no kernel; `cli.plan_fleet --workers
+   2` on 8 pairs, then `--verify_only`.
 
 The last three lines of stdout are the kernels JSON line, the card's
 name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
@@ -1860,6 +1889,11 @@ CURVES = ("color", "tone")
 FIVEK_ACTS = os.path.join("data_real_h2h_acts", "actions_set_1")
 GIER_ACTS = os.path.join("data_real_gier_acts", "GIER_actions_set_1")
 PLAN_PAIRS = 16
+# Phase 31: the mesh's plans against the single card's b8 plans, where
+# their top beams part: on an H100 80GB HBM3 at 700 W one pair of 16
+# parted at its fifth op, final distances 0.022830 and 0.023179
+# (3.49e-4); the bound is about three times that.
+MESH_PART_TOL = 1e-3
 
 
 def parting_step(got, want):
@@ -3000,7 +3034,7 @@ def http_phase():
 # -- phase 23 -----------------------------------------------------------------
 INPAINT_RUN_DIR = os.path.join("output", "chip_smoke_inpaint")
 INPAINT_CKPT = os.path.join(INPAINT_RUN_DIR, "inpaint_model")
-INPAINT_ITERS = 200       # of the CLI's 2,000, cut to keep the whole run short
+INPAINT_ITERS = 100       # of the CLI's 2,000, cut to keep the whole run short
 INPAINT_ARGV = ["--device", "cuda", "--data_dir", "data_real_h2h",
                 "--act_dir", FIVEK_ACTS, "--glove_path", FIVEK_GLOVE_NPY,
                 "--num_iters", str(INPAINT_ITERS),
@@ -3793,11 +3827,518 @@ def pix2pixhd_phase():
     return out
 
 
+# -- phases 29-31: data parallelism -------------------------------------------
+DP_RUN_DIR = os.path.join("output", "chip_smoke_dp")
+DP_ARGV = ["--synthetic", "--device", "cuda", "--batch_size", "64",
+           "--img_size", "128", "--num_iters", "4", "--print_every", "2",
+           "--checkpoint_every", "4", "--val_batches", "1", "--fused_exec",
+           "1"]
+
+
+def nccl_one_rank(fn):
+    """fn() in this process as rank 0 of a world of 1 on NCCL, joined
+    from torchrun's environment (set here, then restored)."""
+    from t2onet_tpu_torch.parallel.workers import free_port
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bn_allreduce_cost(actor, batch):
+    """What the cross-rank BatchNorm would cost an episode step: the
+    train-mode BatchNorm calls of one step (forward hooks), and the host
+    clock of one NCCL all-reduce of the size each call packs (2C + 1
+    floats) at world size 1, synchronised, median of 200."""
+    import torch.distributed as dist
+
+    from t2onet_tpu_torch.models.common import _FlaxBatchNorm
+
+    sizes = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: sizes.append(2 * m.num_features + 1))
+        for m in actor.modules() if isinstance(m, _FlaxBatchNorm)]
+    try:
+        st = loop.TrainState(actor)
+        loop.episode_step(st, batch, torch.Generator(device="cuda")
+                          .manual_seed(1), fused_exec=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    t = torch.zeros(max(sizes), device="cuda")
+    ms = []
+    for i in range(220):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(t[:sizes[i % len(sizes)]])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    per = statistics.median(ms[20:])
+    return {"bn_calls_per_episode_step": len(sizes), "allreduce_ms": per,
+            "per_step_ms": per * len(sizes)}
+
+
+def dp_nccl_phase():
+    """29 (a): `cli.train_fivek --data_parallel 1` in this process as rank 0
+    of a world of 1 on NCCL, against the same run in one process without
+    a group, both with cuDNN's deterministic algorithms: the final
+    weights bit for bit, B1 = B3 = 5 an episode
+    iteration and 5 B1 for the validation batch; an episode step's host
+    and device ms under the group and without it; what the cross-rank
+    BatchNorm's all-reduces would add to that step."""
+    import torch.distributed as dist
+
+    runs, launches = {}, {}
+    # cuDNN's weight-gradient algorithms sum in a nondeterministic order:
+    # two runs compare bit for bit only with the deterministic ones
+    torch.backends.cudnn.deterministic = True
+    for name in ("group", "alone"):
+        run_dir = os.path.join(DP_RUN_DIR, name)
+        shutil.rmtree(run_dir, ignore_errors=True)
+        argv = DP_ARGV + ["--data_parallel", "1", "--run_dir", run_dir]
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            runs[name] = (nccl_one_rank(lambda: train_fivek.main(argv))
+                          if name == "group" else train_fivek.main(argv))
+        finally:
+            if name == "alone":
+                torch.backends.cudnn.deterministic = False
+        torch.cuda.synchronize()
+        launches[name] = dict(chain.LAUNCHES)
+        log(f"dp: train_fivek --data_parallel 1 ({name}: "
+            f"{'rank 0 of 1 on NCCL' if name == 'group' else 'no group'}) "
+            f"4 iterations in {time.perf_counter() - t0:.2f} s; launches "
+            f"{launches[name]}")
+    steps = runs["group"].actor.cfg.decoder_max_len
+    want = {"chain": 2 * steps + steps, "step_bwd": 2 * steps,
+            "chain_masked": 0, "step_bwd_masked": 0}
+    for name in runs:
+        if launches[name] != want:
+            fail(f"dp {name}: launches {launches[name]}, want {want}")
+    sd_g = runs["group"].actor.state_dict()
+    sd_a = runs["alone"].actor.state_dict()
+    differ = [k for k in sd_a if not torch.equal(sd_g[k], sd_a[k])]
+    log(f"  final weights, group of 1 vs no group: {len(sd_a) - len(differ)}"
+        f" of {len(sd_a)} tensors equal bit for bit")
+    if differ:
+        fail(f"dp: the NCCL world of 1 moved these weights otherwise: "
+             f"{differ[:5]}")
+
+    ds = SyntheticFiveK(n=64, img_size=128, seed=5)
+    nb = next(ds.batches(64, 1, shuffle=False))
+    epi = device_put_batch({"x": nb["x"], "img_x": nb["img_x"],
+                            "gt_img": nb["img_y"][:, -1]}, "cuda")
+    st = runs["alone"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def step():
+        loop.episode_step(st, epi, gen, fused_exec=True)
+
+    def measure():
+        return (statistics.median(timed(step)),
+                profiled_us(step)["all"] / 1e3)
+
+    def under_group():
+        from t2onet_tpu_torch.parallel import mesh
+
+        mesh.init_data_parallel("cuda")
+        try:
+            out = measure()
+            cost = bn_allreduce_cost(st.actor, epi)
+        finally:
+            mesh.close_data_parallel()
+        return out, cost
+
+    a1 = measure()
+    (g1, cost) = nccl_one_rank(under_group)
+    a2 = measure()
+    if dist.is_initialized():
+        fail("dp: the NCCL group outlived its run")
+    res = {"weights_equal": True, "launches": launches["group"],
+           "episode_host_ms_group": g1[0], "episode_device_ms_group": g1[1],
+           "episode_host_ms_alone": [a1[0], a2[0]],
+           "episode_device_ms_alone": [a1[1], a2[1]], **cost}
+    log(f"  episode step b64 128 px, full width, fused: host {g1[0]:.2f} ms,"
+        f" device {g1[1]:.2f} ms under the NCCL group of 1; host "
+        f"{a1[0]:.2f} / {a2[0]:.2f} ms, device {a1[1]:.2f} / {a2[1]:.2f} ms "
+        f"without (before / after); the cross-rank BatchNorm would make "
+        f"{cost['bn_calls_per_episode_step']} all-reduces a step, "
+        f"{cost['allreduce_ms']:.4f} ms each on NCCL at world size 1 (host "
+        f"clock, synchronised): {cost['per_step_ms']:.2f} ms a step")
+    return res
+
+
+def dp_step_cases():
+    """29 (b)'s one-step cases at full width, 128 px, global b64, the same
+    noise fed: a supervised and a fused FiveK episode step (synthetic
+    batch), and a fused masked GIER episode step on the real GIER data."""
+    from t2onet_tpu_torch.data.gier import GIERDatasetAct
+    from t2onet_tpu_torch.data.text import load_embedding
+
+    cfg = ModelConfig()
+    vocab = synthetic_vocab()
+    actor = Actor(cfg, OperatorConfig(), len(vocab),
+                  generator=torch.Generator().manual_seed(3))
+    knots_near_one(actor)
+    sd = {k: v.clone() for k, v in actor.state_dict().items()}
+    nb = next(SyntheticFiveK(n=64, img_size=128, seed=9)
+              .batches(64, 1, shuffle=False))
+    g = torch.Generator().manual_seed(11)
+    base = dict(cfg=dataclasses.asdict(cfg), vocab_size=len(vocab),
+                state_dict=sd, full="rank0")
+    cases = [dict(base, name="supervised", kind="supervised",
+                  batch={k: nb[k] for k in SUP_KEYS}),
+             dict(base, name="episode", kind="episode", fused=True,
+                  batch={"x": nb["x"], "img_x": nb["img_x"],
+                         "gt_img": nb["img_y"][:, -1]},
+                  gumbel=[bank.gumbel_noise((64, cfg.op_vocab_size), g)
+                          .numpy() for _ in range(cfg.decoder_max_len)])]
+    glove = load_embedding(GLOVE_NPY)
+    ds = GIERDatasetAct(os.path.join("data_real_gier", "GIER"),
+                        os.path.join("data_real_gier", "language"),
+                        os.path.join("data_real_gier_acts",
+                                     "GIER_actions_set_1"), "train",
+                        data_mode="shapeAlign", is_load_mask=True,
+                        train_img_size=128)
+    gb = next(ds.batches(64, 1, shuffle=True, seed=2))
+    gcfg = ModelConfig(decoder_max_len=8, fix_input_embedding=True)
+    gactor = Actor(gcfg, OperatorConfig(), glove.shape[0] + 4,
+                   generator=torch.Generator().manual_seed(3), word2vec=glove)
+    knots_near_one(gactor)
+    cases.append(dict(
+        name="gier_episode", kind="episode", fused=True, full="rank0",
+        cfg=dataclasses.asdict(gcfg), vocab_size=glove.shape[0] + 4,
+        state_dict={k: v.clone() for k, v in gactor.state_dict().items()},
+        batch={"x": gb["x"], "img_x": gb["img_x"],
+               "gt_img": gb["img_y"][:, -1],
+               "masks_vocab": every_op_masked(gb["masks_vocab"])},
+        gumbel=[bank.gumbel_noise((64, gcfg.op_vocab_size), g).numpy()
+                for _ in range(gcfg.decoder_max_len)]))
+    return cases
+
+
+def dict_grad_gap(got, want):
+    """module_grad_gap over {name: grad} dicts."""
+    total = math.sqrt(sum(float((w.double() ** 2).sum())
+                          for w in want.values()))
+    diff = math.sqrt(sum(float(((got[k].double() - w.double()) ** 2).sum())
+                         for k, w in want.items()))
+    per = sorted(((float((got[k].double() - w.double()).norm())
+                   / (0.05 * float(w.double().norm()) + 1e-6 * total), k)
+                  for k, w in want.items()), reverse=True)
+    return diff / total, per
+
+
+def weight_gaps(got, want):
+    """(largest gap of the updated weights anywhere, largest where the
+    gradient stands clear: |g| above ten times its tensor's largest
+    gradient gap between the two runs, and above 1e-6). Adam's first step
+    moves a weight by lr · g / (|g| + eps): at most lr anywhere, and
+    where the two gradients agree in sign and stand well above eps, by
+    the same amount to within rounding."""
+    anywhere = clear = 0.0
+    for k, g in want["grads"].items():
+        d = (got["state_dict"][k].double()
+             - want["state_dict"][k].double()).abs()
+        g = g.double()
+        noise = float((got["grads"][k].double() - g).abs().max())
+        mask = g.abs() > max(10 * noise, 1e-6)
+        anywhere = max(anywhere, float(d.max()))
+        if mask.any():
+            clear = max(clear, float(d[mask].max()))
+    return anywhere, clear
+
+
+def dp_gloo_phase():
+    """29 (b): two ranks share cuda:0 over gloo (`parallel.workers`, the
+    kernels built cold by both ranks at once into a fresh directory),
+    each on 32 rows of a global b64: one supervised, one FiveK episode
+    and one GIER masked episode step, each held to the same step in one
+    process on the card within phase 9's bounds (loss 1e-5; gradients
+    1e-2 of their norm, each tensor 5e-2 of its own plus 1e-6 of the
+    whole; BatchNorm statistics 1e-4), updated weights within 1e-6 where
+    the gradient stands clear of noise and within 2 lr anywhere
+    (`weight_gaps`), rank 1's weights equal to rank 0's bit for bit; B1 5 + B3 5, then B2 8 + B4 8 a
+    rank."""
+    from t2onet_tpu_torch.parallel import workers
+
+    cases = dp_step_cases()
+    job_dir = os.path.join(DP_RUN_DIR, "gloo")
+    build_dir = os.path.abspath(os.path.join(DP_RUN_DIR, "cold_build"))
+    shutil.rmtree(job_dir, ignore_errors=True)
+    shutil.rmtree(build_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = workers.run_ranks(
+        {"kind": "steps", "device": "cuda:0", "backend": "gloo",
+         "cases": cases}, 2, job_dir, timeout=600,
+        env={"T2ONET_TORCH_BUILD_DIR": build_dir})
+    wall = time.perf_counter() - t0
+    built = sorted(os.listdir(build_dir))
+    log(f"dp: 2 gloo ranks on cuda:0, 3 steps each, in {wall:.2f} s (two "
+        f"processes, cold kernel builds included: {built})")
+    if sorted(built) != sorted(f for f in built if f.endswith(".so")) \
+            or len(built) != len(build.sources()):
+        fail(f"dp: the two ranks' cold builds left {built}")
+    want_launch = {"supervised": {},
+                   "episode": {"chain": 5, "step_bwd": 5},
+                   "gier_episode": {"chain_masked": 8,
+                                    "step_bwd_masked": 8}}
+    out, worst = {}, []
+    for c in cases:
+        name = c["name"]
+        r0, r1 = ranks[0][name], ranks[1][name]
+        one = run_one_case(c)
+        if r0["digest"] != r1["digest"]:
+            fail(f"dp {name}: the two ranks' weights differ")
+        for r in (r0, r1):
+            got = {k: v for k, v in r["launches"].items() if v}
+            if got != want_launch[name]:
+                fail(f"dp {name}: a rank launched {r['launches']}, want "
+                     f"{want_launch[name]}")
+        key = "loss" if name == "supervised" else "L1_loss"
+        lc, lp = r0["metrics"][key], one["metrics"][key]
+        rel, per = dict_grad_gap(r0["actor"]["grads"], one["actor"]["grads"])
+        stats = max(float((r0["actor"]["state_dict"][k]
+                           - one["actor"]["state_dict"][k]).abs().max())
+                    for k in one["actor"]["state_dict"] if "running" in k)
+        dw, dw_clear = weight_gaps(r0["actor"], one["actor"])
+        log(f"  {name}: loss {lc:.7f} (2 ranks) vs {lp:.7f} (one process); "
+            f"gradients {rel:.2e} of their norm (bound 1e-2), worst tensors' "
+            f"error / bound {[(n, round(e, 4)) for e, n in per[:2]]}; BN "
+            f"stats {stats:.2e} (bound 1e-4); updated weights {dw_clear:.2e} "
+            f"apart where the gradient stands clear (bound 1e-6), {dw:.2e} "
+            f"anywhere (Adam's bound 2 lr = 2e-3); launches a rank "
+            f"{r0['launches']}")
+        if (not within_phase9(lc, lp, rel, per, stats) or dw > 2e-3
+                or dw_clear > 1e-6):
+            fail(f"dp {name}: two ranks disagree with one process")
+        worst.append((per[0][0], name, per[0][1]))
+        out[name] = {"loss_ranks": lc, "loss_one": lp, "grad_rel": rel,
+                     "worst": per[0], "stats": stats, "weights": dw,
+                     "launches_per_rank": r0["launches"]}
+    w = max(worst)
+    log(f"  the worst reading against its bound: {w[0]:.4f} ({w[1]}, {w[2]})")
+    launches = {k: sum(r[c["name"]]["launches"][k] for r in ranks
+                       for c in cases) for k in chain.LAUNCHES}
+    return {"steps": out, "wall_s": wall, "launches": launches}
+
+
+def run_one_case(case):
+    from t2onet_tpu_torch.parallel import workers
+
+    c = dict(case, full=True)
+    return workers.run_step_case(c, torch.device("cuda"))
+
+
+def dp_phase():
+    return {"nccl": dp_nccl_phase(), "gloo": dp_gloo_phase()}
+
+
+def mesh_devices():
+    """[cuda:0, cuda:0] plus every further visible card."""
+    return ["cuda:0", "cuda:0"] + [f"cuda:{i}" for i in
+                                   range(1, torch.cuda.device_count())]
+
+
+def mesh_serve_phase():
+    """30: `fused_chain_sharded` over the mesh against `fused_chain` at
+    bench's b128 x 512 x 512 x K5, unmasked and masked: bit-exact, one
+    launch a shard; phase 7's actor behind ServingEngine(mesh=),
+    max_batch 8, 32 requests over two buckets: the programs of the
+    single-device engine, images within one level, one B1 a shard a
+    micro-batch; req/s over 64 requests at 512 px beside the single
+    engine's, in turns."""
+    from t2onet_tpu_torch.ops.chain import fused_chain_sharded
+    from t2onet_tpu_torch.parallel.mesh import make_mesh
+
+    m = make_mesh(devices=mesh_devices())
+    imgs, slots, params = to_card(*bench_workload())
+    mask = to_card(half_mask(128, 512, 512, 5))[0]
+    res = {"mesh": [str(d) for d in m.devices]}
+    launches = {}
+    for name, mk in (("chain", None), ("chain_masked", mask)):
+        want = chain.fused_chain(imgs, slots, params, mask=mk)
+        reset_launches()
+        got = fused_chain_sharded(imgs, slots, params, m, mask=mk)
+        torch.cuda.synchronize()
+        launches[name] = chain.LAUNCHES[name]
+        err = max_err(got, want)
+        ms = statistics.median(time_ms(
+            lambda: fused_chain_sharded(imgs, slots, params, m, mask=mk)))
+        one_ms = statistics.median(time_ms(
+            lambda: chain.fused_chain(imgs, slots, params, mask=mk)))
+        log(f"mesh_serve: fused_chain_sharded ({name}) over {m}: max abs "
+            f"err {err} against fused_chain, {launches[name]} launches; "
+            f"call {ms:.4f} ms vs {one_ms:.4f} ms unsharded")
+        if err != CHAIN_ATOL or launches[name] != m.size:
+            fail(f"mesh_serve: the sharded {name} erred {err} with "
+                 f"{launches[name]} launches (want 0 and {m.size})")
+        res[name] = {"max_abs_err": err, "launches": launches[name],
+                     "ms": ms, "ms_unsharded": one_ms}
+
+    vocab = make_vocab()
+    cfg = ModelConfig()
+    actor = Actor(cfg, OperatorConfig(), len(vocab),
+                  generator=torch.Generator().manual_seed(0))
+    knots_near_one(actor)
+    kw = dict(decode_size=128, max_batch=8, u8_wire=True,
+              encoder_max_len=cfg.encoder_max_len)
+    single = ServingEngine(copy.deepcopy(actor), vocab, device="cuda", **kw)
+    meshed = ServingEngine(actor, vocab, mesh=m, **kw)
+    imgs = make_images(24, 512, 512, seed=0) + make_images(8, 384, 640, 1)
+    reqs = [TEXTS[i % len(TEXTS)] for i in range(len(imgs))]
+    want = single.edit_batch(imgs, reqs)
+    reset_launches()
+    got = meshed.edit_batch(imgs, reqs)
+    serve_launches = dict(chain.LAUNCHES)
+    batches = meshed.stats["batches"]
+    log(f"mesh_serve: 32 requests over {m} in {batches} micro-batches; "
+        f"launches {serve_launches} (want {batches * m.size} chain)")
+    if serve_launches["chain"] != batches * m.size or batches != 4:
+        fail(f"mesh_serve: {serve_launches} over {batches} micro-batches")
+    lsb = 0.0
+    for g, w in zip(got, want):
+        if g.ops != w.ops:
+            fail(f"mesh_serve: the mesh decoded {g.ops}, one card {w.ops}")
+        lsb = max(lsb, float(np.abs(g.image - w.image).max()) * 255)
+    log(f"  the same {len(got)} programs; images within {lsb:.3f} levels")
+    if lsb > LSB:
+        fail(f"mesh_serve: images {lsb} levels apart")
+    for e in (single, meshed):
+        e.warmup(buckets=[(512, 512)])
+    timed_imgs = make_images(64, 512, 512, seed=3)
+    treqs = [TEXTS[i % 4] for i in range(64)]
+    rates = {"single": [], "mesh": []}
+    for name in ("single", "mesh", "mesh", "single"):
+        e = single if name == "single" else meshed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.edit_batch(timed_imgs, treqs)
+        torch.cuda.synchronize()
+        rates[name].append(64 / (time.perf_counter() - t0))
+    log(f"  req/s at 512 px, max_batch 8 (host clock around edit_batch of "
+        f"64, in turns): mesh {[round(r, 2) for r in rates['mesh']]}, one "
+        f"card {[round(r, 2) for r in rates['single']]}")
+    res.update(serve_launches=serve_launches["chain"], images_lsb=lsb,
+               req_s=rates, launches=launches)
+    return res
+
+
+def mesh_plan_phase():
+    """31: batch_beam_search over [cuda:0, cuda:0] on phase 14's 16 FiveK
+    pairs at b8 lockstep: each shard's plans equal, ops and distances bit
+    for bit, the single card's plans of that shard's pairs alone (the
+    same shapes, so the same arithmetic). Against the single card's b8
+    plans the fits' reductions sum in another order at another batch
+    size, and 100 Adam steps carry that into near-ties, as phase 14
+    finds against JAX: where the top-beam ops agree, each step's
+    distance within PLAN_DIST_TOL (up to the parting, where they part)
+    and where they part, the final distances within MESH_PART_TOL. No
+    kernel. Then `cli.plan_fleet --workers 2`
+    on 8 pairs and `--verify_only`."""
+    from t2onet_tpu_torch.data.fivek import FiveK
+    from t2onet_tpu_torch.parallel.mesh import make_mesh, pad_rows, shard_rows
+    from t2onet_tpu_torch.planner.beam import batch_beam_search
+
+    ds = FiveK(os.path.join("data_real_h2h", "FiveK", "images"),
+               os.path.join("data_real_h2h", "FiveK", "annotations"),
+               "train", 1, 128, eval_img_mode="train_size")
+    items = [ds[i] for i in range(PLAN_PAIRS)]
+    m = make_mesh(devices=mesh_devices())
+    walls = {"single": 0.0, "mesh": 0.0}
+    same_ops, b8_gap, partings = 0, 0.0, []
+    reset_launches()
+    for b0 in range(0, PLAN_PAIRS, 8):
+        x = np.stack([it[0] for it in items[b0:b0 + 8]])
+        y = np.stack([it[1] for it in items[b0:b0 + 8]])
+        plans = {}
+        for name, kw in (("single", {"device": "cuda"}), ("mesh", {"mesh": m})):
+            t0 = time.perf_counter()
+            plans[name] = [a for a, _ in batch_beam_search(
+                x, y, seed=10 + b0, replay_beams=1, **kw)]
+            walls[name] += time.perf_counter() - t0
+        xp, yp = pad_rows(x, m.size), pad_rows(y, m.size)
+        shards = []
+        for r, d in zip(shard_rows(len(xp), m), m.devices):
+            shards += [a for a, _ in batch_beam_search(
+                xp[r], yp[r], seed=10 + b0, replay_beams=1, device=d)]
+        for i, (got, alone, b8) in enumerate(zip(plans["mesh"], shards,
+                                                 plans["single"])):
+            if got != alone:
+                fail(f"mesh_plan: pair {b0 + i}: the mesh planned {got[0]}, "
+                     f"its shard alone {alone[0]}")
+            k = parting_step(got[0], b8[0])
+            b8_gap = max([b8_gap] + [abs(a[2] - b[2]) for a, b
+                                     in zip(got[0][:k], b8[0][:k])])
+            if k < max(len(got[0]), len(b8[0])):
+                partings.append((b0 + i, k, got[0][-1][2] if got[0]
+                                 else math.inf, b8[0][-1][2] if b8[0]
+                                 else math.inf))
+            else:
+                same_ops += 1
+    launches = sum(chain.LAUNCHES.values())
+    log(f"mesh_plan: {PLAN_PAIRS} pairs in 2 lockstep batches of 8 over {m}:"
+        f" every plan equal to its shard's planned alone; against the "
+        f"single card's b8 plans {same_ops} of {PLAN_PAIRS} with the same "
+        f"top-beam ops, step distances before any parting up to "
+        f"{b8_gap:.3e} apart (bound "
+        f"{PLAN_DIST_TOL}); {PLAN_PAIRS / walls['mesh']:.3f} pairs/s vs "
+        f"{PLAN_PAIRS / walls['single']:.3f} on one card; launches "
+        f"{launches}")
+    for pair, k, d_mesh, d_b8 in partings:
+        log(f"  pair {pair}: the mesh and b8 plans part at step {k}, final "
+            f"distances {d_mesh:.7f} vs {d_b8:.7f} (bound {MESH_PART_TOL})")
+    if b8_gap > PLAN_DIST_TOL:
+        fail(f"mesh_plan: step distances {b8_gap:.3e} from the b8 plans")
+    far = [p for p in partings if abs(p[2] - p[3]) > MESH_PART_TOL]
+    if far:
+        fail(f"mesh_plan: plans part beyond a near-tie: {far}")
+    if launches:
+        fail(f"mesh_plan: the planner launched {launches} kernels")
+    out = os.path.join("output", "chip_smoke_fleet")
+    shutil.rmtree(out, ignore_errors=True)
+    fleet = ["--data_dir", "data_real_h2h", "--total", "8", "--img_size",
+             "128", "--out_dir", out]
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m",
+                        "t2onet_tpu_torch.cli.plan_fleet", "--workers", "2",
+                        "--pair_batch", "4"] + fleet,
+                       capture_output=True, text=True, timeout=600)
+    fleet_s = time.perf_counter() - t0
+    log(f"  plan_fleet --workers 2 on 8 pairs: rc {p.returncode} in "
+        f"{fleet_s:.2f} s: {p.stdout.strip().splitlines()[-1:]}")
+    if p.returncode != 0:
+        fail(f"plan_fleet failed: {p.stdout[-2000:]} {p.stderr[-2000:]}")
+    v = subprocess.run([sys.executable, "-m",
+                        "t2onet_tpu_torch.cli.plan_fleet", "--verify_only"]
+                       + fleet, capture_output=True, text=True, timeout=120)
+    log(f"  plan_fleet --verify_only: rc {v.returncode}: {v.stdout.strip()}")
+    if v.returncode != 0:
+        fail("plan_fleet --verify_only found missing pairs")
+    return {"same_ops_as_b8": same_ops, "step_dist_gap_b8": b8_gap,
+            "partings_b8": partings,
+            "pairs_per_s_mesh": PLAN_PAIRS / walls["mesh"],
+            "pairs_per_s_single": PLAN_PAIRS / walls["single"],
+            "launches": launches, "fleet_s": fleet_s,
+            "fleet": json.loads(p.stdout.strip().splitlines()[-1])}
+
+
 PHASES = {"4b": eval_chain_phase, "serve_pipeline": serve_pipeline_phase,
           "http": http_phase, "inpaint": inpaint_phase,
           "demo_plan": demo_plan_phase, "gan": gan_phase,
           "gan_plan": gan_plan_phase, "fid": fid_phase,
-          "pix2pixhd": pix2pixhd_phase}
+          "pix2pixhd": pix2pixhd_phase, "dp": dp_phase,
+          "mesh_serve": mesh_serve_phase, "mesh_plan": mesh_plan_phase}
 
 
 def run_phases(names):
@@ -3876,6 +4417,9 @@ def main(argv=None):
     gp = gan_plan_phase()
     fd = fid_phase()
     p2p = pix2pixhd_phase()
+    dpr = dp_phase()
+    msv = mesh_serve_phase()
+    mpl = mesh_plan_phase()
     # the planner runs no kernel: phases 14-15 checked that every count
     # stayed 0 (pf["launches"], pg["launches"])
     plan = {"plan_fivek": pf["launches"], "plan_gier": pg["launches"]}
@@ -3894,6 +4438,16 @@ def main(argv=None):
     # the disc planner (no kernel), the eval with FID
     new.update(train_gan=gn["launches"], plan_fivek_disc=gp["launches"],
                fid_eval=fd["launches"])
+    # data parallelism: the trainer as rank 0 of an NCCL world of 1, two
+    # gloo ranks' steps on one card (both ranks' launches), the sharded
+    # chain, the mesh engine, the mesh planner (no kernel)
+    new.update(
+        dp_nccl_train=dpr["nccl"]["launches"],
+        dp_gloo_two_ranks=dpr["gloo"]["launches"],
+        mesh_chain={k: msv["launches"].get(k, 0) for k in chain.LAUNCHES},
+        mesh_serve={k: msv["serve_launches"] if k == "chain" else 0
+                    for k in chain.LAUNCHES},
+        mesh_plan={k: 0 for k in chain.LAUNCHES})
     chain_by_path = {"serve": serve_launches,
                      "train": train_launches["chain"],
                      "gier_train": gier_launches["chain"],
@@ -3980,7 +4534,8 @@ def main(argv=None):
         "serve_pipeline": sp, "serve_http": {k: v for k, v in hp.items()
                                              if k != "bench"},
         "serve_bench": hp["bench"], "inpaint": ip, "demo_plan": dp,
-        "gan": gn, "gan_plan": gp, "fid": fd, "pix2pixhd": p2p}
+        "gan": gn, "gan_plan": gp, "fid": fd, "pix2pixhd": p2p,
+        "dp": dpr, "mesh_serve": msv, "mesh_plan": mpl}
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

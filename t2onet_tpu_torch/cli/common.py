@@ -17,6 +17,7 @@ import torch
 
 from t2onet_tpu_torch.config import (Config, ModelConfig, OperatorConfig,
                                      TrainConfig)
+from t2onet_tpu_torch.parallel import mesh
 from t2onet_tpu_torch.precision import set_cuda_precision
 
 
@@ -99,6 +100,56 @@ def resolve_fused_exec(flag: int, device: torch.device) -> bool:
     through the one-hot bank, -1 (the default) the kernels on a CUDA
     device and the bank on the CPU."""
     return device.type == "cuda" if flag == -1 else bool(flag)
+
+
+def add_data_parallel_arg(p: argparse.ArgumentParser):
+    """The trainers' `--data_parallel` (JAX's, int, default 1)."""
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="> 0: under torchrun, each process trains as a rank "
+                        "of the data-parallel group on its rows of the "
+                        "global --batch_size (one process: one device)")
+    return p
+
+
+def join_data_parallel(a):
+    """`--data_parallel` (JAX's flag: > 0 shards the batch over every
+    device): under torchrun's environment this process joins the
+    data-parallel group as its rank (`parallel.mesh.init_data_parallel`:
+    NCCL on `cuda:{LOCAL_RANK}`, gloo with `--device cpu`, torch's
+    default timeout for collectives), and the global
+    `--batch_size` must divide by the world size. With one process and
+    more than one card visible it says that it trains on one card and how
+    to start a rank a card. Returns (device, joined)."""
+    if not mesh.launched_by_torchrun():
+        device = resolve_device(a.device)
+        n = torch.cuda.device_count() if device.type == "cuda" else 1
+        if a.data_parallel > 0 and n > 1:
+            print(f"data parallelism: one process trains on {device} of the "
+                  f"{n} visible cards; start one rank a card with "
+                  f"`torchrun --nproc_per_node {n} -m <this module> ...`")
+        return device, False
+    w = int(os.environ["WORLD_SIZE"])
+    if a.data_parallel <= 0:
+        if w > 1:
+            raise SystemExit(f"--data_parallel {a.data_parallel} under "
+                             f"torchrun's {w} ranks: each would train alone")
+        return resolve_device(a.device), False
+    if a.batch_size % w:
+        raise SystemExit(f"--batch_size {a.batch_size} not divisible by the "
+                         f"world size {w}")
+    resolve_device(a.device)
+    device = mesh.init_data_parallel(a.device, timeout=None)
+    if mesh.rank() == 0:
+        print(f"data-parallel over {w} rank(s) "
+              f"({torch.distributed.get_backend()}), "
+              f"{a.batch_size // w} rows a rank")
+    return device, True
+
+
+def rank0_print():
+    """print on data-parallel rank 0 (and in one process); a no-op on the
+    other ranks."""
+    return print if mesh.rank() == 0 else (lambda *args, **kwargs: None)
 
 
 def add_train_args(p: argparse.ArgumentParser):
@@ -276,13 +327,17 @@ def build_actor(a, vocab_size: int, word2vec=None):
 
 
 class ScalarLogger:
-    """JSONL scalar log, one record per call: {"step", "time", ...}."""
+    """JSONL scalar log, one record per call: {"step", "time", ...}.
+    `enabled=False` (a data-parallel rank other than 0) writes nothing."""
 
-    def __init__(self, run_dir: str, name: str = "metrics"):
+    def __init__(self, run_dir: str, name: str = "metrics",
+                 enabled: bool = True):
         self.path = os.path.join(run_dir, f"{name}.jsonl")
-        self._f = open(self.path, "a")
+        self._f = open(self.path, "a") if enabled else None
 
     def log(self, step: int, **scalars):
+        if self._f is None:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._f.write(json.dumps(rec) + "\n")

@@ -20,8 +20,10 @@ model.pth (`--torch_gan_ckpt`).
 
 It runs on the card (`--device cuda`, the default) and raises where
 PyTorch finds none; `--device cpu` runs it on the CPU. The learned
-distance plans one pair at a time. `--data_parallel` waits for
-multi-GPU (ROADMAP A6): the parser refuses it.
+distance plans one pair at a time. `--data_parallel N` splits each
+lockstep batch's fits over the first N cards (`parallel.mesh`; it needs
+`--pair_batch > 1`, and raises where fewer cards are visible; with
+`--device cpu`, N entries of the CPU).
 """
 
 from __future__ import annotations
@@ -33,21 +35,12 @@ import numpy as np
 import torch
 
 from t2onet_tpu_torch.cli import common
+from t2onet_tpu_torch.parallel.mesh import make_mesh
 from t2onet_tpu_torch.planner.beam import normalize_dist_type
 from t2onet_tpu_torch.planner.generate import (plan_dataset,
                                                plan_dataset_batched)
 
 DISC_DIST = "seq2seqgan-disc"
-
-
-def refuse(flag: str, why: str):
-    """An argparse action that refuses `flag` by name, saying why."""
-
-    class Refuse(argparse.Action):
-        def __call__(self, parser, namespace, values, option_string=None):
-            parser.error(f"{flag} {why}")
-
-    return Refuse
 
 
 def dist_type(value: str) -> str:
@@ -104,8 +97,9 @@ def plan_parser() -> argparse.ArgumentParser:
                    help="best / latest / an explicit actor checkpoint path")
     p.add_argument("--num_D", type=int, default=2)
     p.add_argument("--n_layers_D", type=int, default=3)
-    p.add_argument("--data_parallel", action=refuse(
-        "--data_parallel", "waits for the multi-GPU port (ROADMAP A6)"))
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="shard the lockstep pair fits over this many "
+                        "devices (needs --pair_batch > 1)")
     return p
 
 
@@ -169,6 +163,13 @@ def main(argv=None):
     if disc and a.pair_batch > 1:
         raise SystemExit("--dist_type seq2seqGAN-disc plans pairs one at a "
                          "time (drop --pair_batch)")
+    if a.data_parallel > 1 and a.pair_batch <= 1:
+        raise SystemExit("--data_parallel shards the lockstep pair fits — "
+                         "it needs --pair_batch > 1")
+    mesh = None
+    if a.data_parallel > 1:
+        mesh = make_mesh(n_devices=a.data_parallel, device=device)
+        print(f"data-parallel planning over {mesh}")
 
     vocab2id = w2v = None                 # read only by the disc distance
     if a.synthetic:
@@ -207,7 +208,7 @@ def main(argv=None):
     if a.pair_batch > 1:
         return plan_dataset_batched(pairs(), a.out_dir, phase=a.phase,
                                     pair_batch=a.pair_batch, limit=a.limit,
-                                    start_index=a.start, **kw)
+                                    start_index=a.start, mesh=mesh, **kw)
     return plan_dataset(pairs(), a.out_dir, phase=a.phase, limit=a.limit,
                         start_index=a.start, score_aux_fn=score_aux_fn, **kw)
 

@@ -28,6 +28,17 @@ torch.profiler. The model's modes are the common flags `--vis_bf16` and
 
 It runs on the card (`--device cuda`, the default) and raises where
 PyTorch finds none; `--device cpu` runs it on the CPU.
+
+Data parallelism (`--data_parallel`, default 1): started by torchrun,
+each process joins the group as a rank (NCCL on `cuda:{LOCAL_RANK}`,
+gloo with `--device cpu`), iterates the same seeded batch order as one
+process and steps on its rows of the global `--batch_size`, which the
+world size must divide (`train/loop.py` keeps the step world size 1's).
+Rank 0 alone prints, logs, validates and writes checkpoints; the others
+wait for it. `--resume` restores on every rank.
+
+  torchrun --standalone --nproc_per_node 8 -m \
+      t2onet_tpu_torch.cli.train_fivek --synthetic --batch_size 512
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import torch
 
 from t2onet_tpu_torch.cli import common
 from t2onet_tpu_torch.data.loader import Prefetcher, device_put_batch
+from t2onet_tpu_torch.parallel import mesh
 from t2onet_tpu_torch.train.checkpoint import CheckpointManager
 from t2onet_tpu_torch.train.loop import (TrainState, episode_step,
                                          eval_episode, supervised_step)
@@ -68,6 +80,7 @@ def train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     common.add_base_args(p)
     common.add_train_args(p)
+    common.add_data_parallel_arg(p)
     p.add_argument("--fused_exec", type=int, default=-1, choices=(-1, 0, 1),
                    help="episode phase executes ops through the fused step "
                         "kernels (selected branch only, forward and "
@@ -98,8 +111,18 @@ def main(argv=None, parser=None):
     """Train; returns the final TrainState. `parser` defaults to
     `train_parser()` (cli/train_gier.py passes its own)."""
     a = (parser or train_parser()).parse_args(argv)
-    device = common.resolve_device(a.device)
-    run_dir = common.resolve_run_dir(a)
+    device, joined = common.join_data_parallel(a)
+    try:
+        return _train(a, device)
+    finally:
+        if joined:
+            mesh.close_data_parallel()
+
+
+def _train(a, device):
+    main_rank = mesh.rank() == 0
+    say = common.rank0_print()
+    run_dir = common.resolve_run_dir(a, record=main_rank)
 
     train_ds, vocab2id, _, w2v = common.build_dataset_and_vocab(
         a, "train", wire_u8=bool(a.wire_u8))
@@ -109,7 +132,7 @@ def main(argv=None, parser=None):
     actor, _ = common.build_actor(a, len(vocab2id), w2v)
     state = TrainState(actor.to(device), learning_rate=a.learning_rate)
     n_params = sum(x.numel() for x in actor.parameters())
-    print(f"model: {n_params / 1e6:.2f}M params on {device}")
+    say(f"model: {n_params / 1e6:.2f}M params on {device}")
 
     ckpt = CheckpointManager(os.path.join(run_dir, "seq2seqL1_model"),
                              max_to_keep=a.max_keep_ckpts or None)
@@ -120,24 +143,24 @@ def main(argv=None, parser=None):
         try:
             ckpt.restore(state, "latest", generator=gen)
             start_itr = state.step + 1
-            print(f"resumed from iter {state.step}")
+            say(f"resumed from iter {state.step}")
         except FileNotFoundError:
-            print("--resume: no checkpoint found, starting fresh")
+            say("--resume: no checkpoint found, starting fresh")
 
-    logger = common.ScalarLogger(run_dir)
+    logger = common.ScalarLogger(run_dir, enabled=main_rank)
     # GIER local edits: the masks reach the episode phase only (the
     # supervised loss reads no executed image)
     use_masks = (bool(getattr(a, "is_load_mask", 0)) and not a.synthetic
                  and a.dataset == "GIER")
     if getattr(a, "is_load_mask", 0) and not use_masks:
-        print("warning: --is_load_mask set but the dataset emits no masks: "
+        say("warning: --is_load_mask set but the dataset emits no masks: "
               "training global-only")
     fused = common.resolve_fused_exec(a.fused_exec, device)
-    print(f"episode executor: "
+    say(f"episode executor: "
           f"{'fused step kernels' if fused else 'one-hot bank'}")
     probe = a.episode_probe or None
     if probe:
-        print(f"episode probe resolution: {probe} px (execution and L1 at "
+        say(f"episode probe resolution: {probe} px (execution and L1 at "
               f"{a.img_size} px)")
 
     stage_itr = itertools.count(start_itr)
@@ -156,7 +179,7 @@ def main(argv=None, parser=None):
                     "gt_img": b["img_y"][:, -1]}
             if use_masks:
                 keep["masks_vocab"] = b["masks_vocab"]
-        return sup, device_put_batch(keep, device)
+        return sup, device_put_batch(mesh.rows_of(keep), device)
 
     n_left = max(a.num_iters - start_itr + 1, 0)
     it = Prefetcher(train_ds.batches(a.batch_size, n_left, shuffle=True),
@@ -167,7 +190,7 @@ def main(argv=None, parser=None):
     counts = {k: 0 for k in keys}
     tik = time.time()
     # profile window: steps prof_start..prof_stop, after both phases warm
-    prof_start = start_itr + 4 if a.profile_steps else -1
+    prof_start = start_itr + 4 if a.profile_steps and main_rank else -1
     prof_stop = prof_start + a.profile_steps - 1
     prof_dir = os.path.join(run_dir, "profile")
     prof = None
@@ -198,12 +221,13 @@ def main(argv=None, parser=None):
                 counts = {k: 0 for k in keys}
                 dt = (time.time() - tik) / a.print_every
                 tik = time.time()
-                print(f"iter {itr:6d}/{a.num_iters} op {avg['op_loss']:.3f} "
+                say(f"iter {itr:6d}/{a.num_iters} op {avg['op_loss']:.3f} "
                       f"param {avg['param_loss']:.3f} L1 {avg['L1_loss']:.3f} "
                       f"{dt * 1e3:.0f} ms/it", flush=True)
                 logger.log(itr, **avg)
 
-            if itr % a.checkpoint_every == 0 or itr >= a.num_iters:
+            if (itr % a.checkpoint_every == 0 or itr >= a.num_iters) \
+                    and main_rank:
                 if a.val_batches > 0:
                     val = evaluate(actor, val_ds, min(a.batch_size, 16),
                                    a.val_batches, device, fused_exec=fused)
@@ -214,6 +238,8 @@ def main(argv=None, parser=None):
                               f"(val L1 {val:.4f})")
                 else:
                     ckpt.save(state, itr, None, generator=gen)
+            if itr % a.checkpoint_every == 0 or itr >= a.num_iters:
+                mesh.barrier()      # the other ranks wait for rank 0
             if itr >= a.num_iters:
                 break
     finally:
@@ -221,7 +247,7 @@ def main(argv=None, parser=None):
         logger.close()
         if prof is not None:      # the run ended inside the profile window
             prof.__exit__(None, None, None)
-    print("training done")
+    say("training done")
     return state
 
 

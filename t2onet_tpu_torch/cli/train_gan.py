@@ -50,7 +50,9 @@ from t2onet_tpu_torch.models.common import init_torch_defaults
 from t2onet_tpu_torch.models.gan import DiscBundle, Seq2SeqGANLosses
 from t2onet_tpu_torch.train.checkpoint import (CheckpointManager,
                                                StateCheckpointer)
-from t2onet_tpu_torch.train.loop import TrainState, supervised_step
+from t2onet_tpu_torch.parallel import mesh
+from t2onet_tpu_torch.train.loop import (TrainState, adam_step, global_draws,
+                                         global_metrics, supervised_step)
 
 
 class GANState:
@@ -66,17 +68,6 @@ class GANState:
                                       betas=(beta1, 0.999), eps=1e-8)
         self.g_opt = torch.optim.Adam(self.g_params, lr=gan_lr,
                                       betas=(beta1, 0.999), eps=1e-8)
-
-
-def _adam_step(opt, params, loss):
-    """Backpropagate `loss` and step `opt`; a parameter the loss does not
-    reach gets a zero gradient, as optax treats a missing one."""
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    opt.step()
 
 
 def last_valid_teacher(img_y: np.ndarray) -> np.ndarray:
@@ -102,17 +93,28 @@ def gan_step(state: TrainState, gan: GANState, batch, losses,
     on the actor's device. The rollout samples its ops with Gumbel draws
     from `generator` (or `noise_fn`); `fused_exec` executes each step
     through `ops.step.fused_step`. Returns the metrics as tensors on the
-    device."""
+    device.
+
+    Under a data-parallel group (JAX's `make_gan_step(mesh=)`) each rank
+    takes its rows: the draws are the global batch's rows, every
+    BatchNorm (the actor's, D's and the condition encoder's, and D's
+    statistics update) normalises with the global batch's statistics,
+    each loss, a mean over the batch, counts as its rank's share of the
+    global mean, and G's and D's gradients are summed over the ranks;
+    both Adams stay replicated."""
     actor, bundle = state.actor, gan.bundle
     actor.train()
     bundle.train()
     src, gt = batch["img_x"], batch["gt_img"]
     pseudo = batch.get("pseudo_real")
+    # a rank's share of a global mean over equal row blocks
+    share = 1.0 / mesh.world_size()
     # the text condition from the encoder's hidden state, held fixed
     with torch.no_grad():
         enc_h = actor.lang_encoder(batch["x"])[1][0]
         cond = bundle.cond_encoder(enc_h)
 
+    noise_fn, _ = global_draws(generator, noise_fn)
     out = actor.episode(batch["x"], src, sample=True, generator=generator,
                         noise_fn=noise_fn, fused_exec=fused_exec)
     fake = select_end_images(out["imgs"], out["ops"])
@@ -123,20 +125,23 @@ def gan_step(state: TrainState, gan: GANState, batch, losses,
     finally:
         bundle.requires_grad_(True)
     g_total = ld["G_GAN"] + ld["G_GAN_Feat"] + ld["G_VGG"]
-    _adam_step(gan.g_opt, gan.g_params, g_total)
+    adam_step(gan.g_opt, gan.g_params,
+              g_total * share if mesh.active() else g_total)
 
     ld2 = losses(bundle.netD, src, fake.detach(), gt,
                  bundle.cond_encoder(enc_h), pseudo_real=pseudo, parts="d")
     d_total = 0.5 * (ld2["D_fake"] + ld2["D_real"])
-    _adam_step(gan.d_opt, gan.d_params, d_total)
+    adam_step(gan.d_opt, gan.d_params,
+              d_total * share if mesh.active() else d_total)
 
     bundle.update_stats(torch.cat([src, gt], dim=1), enc_h)
     state.step += 1
-    return {"G_loss": g_total.detach(), "D_loss": d_total.detach(),
-            "G_GAN": ld["G_GAN"].detach(),
-            "G_GAN_Feat": ld["G_GAN_Feat"].detach(),
-            "D_real": ld2["D_real"].detach(),
-            "D_fake": ld2["D_fake"].detach()}
+    metrics = {"G_loss": g_total, "D_loss": d_total,
+               "G_GAN": ld["G_GAN"], "G_GAN_Feat": ld["G_GAN_Feat"],
+               "D_real": ld2["D_real"], "D_fake": ld2["D_fake"]}
+    if mesh.active():
+        metrics = {k: v * share for k, v in metrics.items()}
+    return global_metrics(metrics)
 
 
 def train_parser() -> argparse.ArgumentParser:

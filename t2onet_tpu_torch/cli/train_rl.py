@@ -13,7 +13,10 @@ generator's state, which `--resume` restores.
       --num_iters 1000 --batch_size 16 --img_size 64
 
 It runs on the card (`--device cuda`, the default) and raises where
-PyTorch finds none; `--device cpu` runs it on the CPU.
+PyTorch finds none; `--device cpu` runs it on the CPU. `--data_parallel`
+under torchrun as `cli.train_fivek`'s: each rank steps on its rows of
+the global batch, with the global baseline and spread (`train/rl.py`);
+rank 0 alone prints, logs, validates and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from t2onet_tpu_torch.cli import common
 from t2onet_tpu_torch.cli.train_fivek import evaluate
 from t2onet_tpu_torch.data.loader import Prefetcher, device_put_batch
+from t2onet_tpu_torch.parallel import mesh
 from t2onet_tpu_torch.train import rl
 from t2onet_tpu_torch.train.checkpoint import CheckpointManager
 from t2onet_tpu_torch.train.loop import TrainState, supervised_step
@@ -37,6 +41,7 @@ def train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     common.add_base_args(p)
     common.add_train_args(p)
+    common.add_data_parallel_arg(p)
     p.add_argument("--warmup", type=int, default=200,
                    help="supervised warmup iterations before RL")
     # the JAX CLI's 0.01, not the reference flag's 0.05: at 0.05 the pull
@@ -58,8 +63,18 @@ def train_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Train; returns the final TrainState."""
     a = train_parser().parse_args(argv)
-    device = common.resolve_device(a.device)
-    run_dir = common.resolve_run_dir(a)
+    device, joined = common.join_data_parallel(a)
+    try:
+        return _train(a, device)
+    finally:
+        if joined:
+            mesh.close_data_parallel()
+
+
+def _train(a, device):
+    main_rank = mesh.rank() == 0
+    say = common.rank0_print()
+    run_dir = common.resolve_run_dir(a, record=main_rank)
     train_ds, vocab2id, _, w2v = common.build_dataset_and_vocab(a, "train")
     val_ds = common.build_dataset_and_vocab(a, "val",
                                             eval_img_mode="train_size")[0]
@@ -74,11 +89,12 @@ def main(argv=None):
         try:
             ckpt.restore(state, "latest", generator=gen)
             start_itr = state.step + 1
-            print(f"resumed from iter {state.step}")
+            say(f"resumed from iter {state.step}")
         except FileNotFoundError:
-            print("--resume: no checkpoint found, starting fresh")
+            say("--resume: no checkpoint found, starting fresh")
 
-    logger = common.ScalarLogger(run_dir, name="rl_metrics")
+    logger = common.ScalarLogger(run_dir, name="rl_metrics",
+                                 enabled=main_rank)
     fused = common.resolve_fused_exec(-1, device)
     total = a.warmup + a.num_iters
     stage_itr = itertools.count(start_itr)
@@ -89,7 +105,7 @@ def main(argv=None):
         keep = ({k: b[k] for k in ("x", "y", "img_x", "img_y", "gt_params")}
                 if warm else {"x": b["x"], "img_x": b["img_x"],
                               "gt_img": b["img_y"][:, -1]})
-        return warm, device_put_batch(keep, device)
+        return warm, device_put_batch(mesh.rows_of(keep), device)
 
     n_left = max(total - start_itr + 1, 0)
     it = Prefetcher(train_ds.batches(a.batch_size, n_left, shuffle=True),
@@ -115,12 +131,12 @@ def main(argv=None):
                 dt = (time.time() - tik) / a.print_every
                 tik = time.time()
                 line = " ".join(f"{k} {v:.4f}" for k, v in sorted(avg.items()))
-                print(f"iter {itr:6d}/{total} "
+                say(f"iter {itr:6d}/{total} "
                       f"[{'warmup' if warm else 'rl'}] {line} "
                       f"{dt * 1e3:.0f} ms/it", flush=True)
                 logger.log(itr, **avg)
 
-            if itr % a.checkpoint_every == 0 or itr >= total:
+            if (itr % a.checkpoint_every == 0 or itr >= total) and main_rank:
                 if a.val_batches > 0:
                     val = evaluate(actor, val_ds, min(a.batch_size, 16),
                                    a.val_batches, device, fused_exec=fused)
@@ -131,12 +147,14 @@ def main(argv=None):
                               f"(val L1 {val:.4f})")
                 else:
                     ckpt.save(state, itr, None, generator=gen)
+            if itr % a.checkpoint_every == 0 or itr >= total:
+                mesh.barrier()      # the other ranks wait for rank 0
             if itr >= total:
                 break
     finally:
         it.close()
         logger.close()
-    print("training done")
+    say("training done")
     return state
 
 

@@ -38,6 +38,7 @@ from t2onet_tpu_torch.ops.bank import gumbel_noise
 from t2onet_tpu_torch.ops.chain import vocab_ops_to_slots
 from t2onet_tpu_torch.ops.operators import OP_NAMES, PARAM_COUNTS
 from t2onet_tpu_torch.ops.step import fused_step
+from t2onet_tpu_torch.parallel import mesh
 
 # Ops the rollout may pick: blocks <NONE>, <START>, inpaint_obj, color_bg
 # (vocab order <NONE> <START> <END> brightness contrast saturation hue
@@ -172,13 +173,16 @@ class Actor(nn.Module):
     def _attn_mask(self, enc_valid):
         """Each request's true length, or with cfg.attend_batch_max every
         position up to the batch's longest request (the reference's
-        unmasked attention over zero-padded encoder outputs)."""
+        unmasked attention over zero-padded encoder outputs). A training
+        step under data parallelism takes the global batch's longest;
+        evaluation (rank 0 alone) its own batch's."""
         if not self.cfg.attend_batch_max:
             return enc_valid
-        lengths = enc_valid.sum(dim=1)
+        longest = enc_valid.sum(dim=1).max()
+        if self.training:
+            longest = mesh.global_max(longest)
         pos = torch.arange(enc_valid.shape[1], device=enc_valid.device)
-        return (pos < lengths.max()).to(enc_valid.dtype) \
-            .expand_as(enc_valid)
+        return (pos < longest).to(enc_valid.dtype).expand_as(enc_valid)
 
     def vis_feat(self, img):
         """ResNet feature -> BN1d -> ReLU (BatchNorm in the module's mode)."""

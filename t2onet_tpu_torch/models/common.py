@@ -9,6 +9,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from t2onet_tpu_torch.parallel import mesh
+
 
 class _FlaxBatchNorm:
     """BatchNorm whose train-mode running statistics follow
@@ -16,25 +18,60 @@ class _FlaxBatchNorm:
     one, mean(x^2) - mean(x)^2 clipped at 0, and each update keeps 0.9 of
     the old value (torch would use the unbiased variance). Normalisation
     uses the batch statistics, with gradients through them, as torch's
-    does; eval mode and the state_dict names are torch's."""
+    does; eval mode and the state_dict names are torch's.
+
+    Under a data-parallel group of more than one rank the statistics are
+    the global batch's, as under JAX's sharded batch: the per-channel sum,
+    sum of squares and count are summed over the ranks in one
+    differentiable all-reduce (its backward sums the gradients too), and
+    the input is normalised with the global mean and biased variance."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        return self._train_forward(x, update=True)
+
+    def _train_forward(self, x, update: bool):
         self._check_input_dim(x)
-        dims = [0] + list(range(2, x.ndim))
+        if mesh.active():
+            return self._global_forward(x, update)
+        if update:
+            dims = [0] + list(range(2, x.ndim))
+            with torch.no_grad():
+                xd = x.detach()
+                mean = xd.mean(dims)
+                var = torch.clamp_min((xd * xd).mean(dims) - mean * mean,
+                                      0.0)
+                self._move_running(mean, var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+    def _move_running(self, mean, var):
         with torch.no_grad():
-            xd = x.detach()
-            mean = xd.mean(dims)
-            var = torch.clamp_min((xd * xd).mean(dims) - mean * mean, 0.0)
             keep = 1.0 - self.momentum
             self.running_mean.copy_(keep * self.running_mean
                                     + (1.0 - keep) * mean)
             self.running_var.copy_(keep * self.running_var
                                    + (1.0 - keep) * var)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+
+    def _global_forward(self, x, update: bool):
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.ndim))
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xs.new_full((1,), float(x.numel() // c))
+        sums = mesh.sum_across_ranks(torch.cat([xs.sum(dims),
+                                                (xs * xs).sum(dims), count]))
+        n = sums[-1]
+        mean = sums[:c] / n
+        var = torch.clamp_min(sums[c:2 * c] / n - mean * mean, 0.0)
+        if update:
+            self._move_running(mean.detach(), var.detach())
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xs - mean.view(shape)) * scale.view(shape) \
+            + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class FlaxBatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):

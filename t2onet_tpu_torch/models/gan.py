@@ -38,8 +38,7 @@ class _GatedBatchNorm:
 
     def forward(self, x):
         if self.training and not self.update_running:
-            return F.batch_norm(x, None, None, self.weight, self.bias, True,
-                                0.0, self.eps)
+            return self._train_forward(x, update=False)
         return super().forward(x)
 
 

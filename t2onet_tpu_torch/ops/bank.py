@@ -253,14 +253,14 @@ def vocab_onehot(op_vocab_ids):
 def select_params(op_vocab_ids, params):
     """Chosen (padded) parameter row per image: (B,), (B, N_OPS, 24) ->
     (B, 24); zeros for special tokens."""
-    onehot = vocab_onehot(op_vocab_ids)
+    onehot = vocab_onehot(op_vocab_ids).to(params.dtype)
     return torch.einsum("bk,bkp->bp", onehot[:, 1:], params)
 
 
 def execute_bank(img, op_vocab_ids, params, mask=None, inpaint_fn=None):
     """Execute a batch of mixed ops given by decoder vocab ids (B,).
     Returns (out_imgs (B,3,H,W), chosen_params (B, 24))."""
-    onehot = vocab_onehot(op_vocab_ids)
+    onehot = vocab_onehot(op_vocab_ids).to(img.dtype)
     out = execute_onehot(img, onehot, params, mask, inpaint_fn)
     if params.ndim == 3:
         chosen = torch.einsum("bk,bkp->bp", onehot[:, 1:], params)

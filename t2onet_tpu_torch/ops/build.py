@@ -1,7 +1,9 @@
 """Build the kernel sources of `csrc/` with nvcc and load them with ctypes.
 
 Every `csrc/*.cu` becomes its own shared library with a plain C interface
-in the package's git-ignored `_build/` directory. One hash over all the
+in the package's git-ignored `_build/` directory (or the directory
+T2ONET_TORCH_BUILD_DIR names). Processes that build at once each write
+their own temporary file and rename it into place. One hash over all the
 sources names the libraries, so an edit to any source rebuilds them all;
 the nvcc processes run side by side. Nothing is built when this module is
 imported: the first `library(name)` (or `build()`) does it.
@@ -20,7 +22,9 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+# T2ONET_TORCH_BUILD_DIR puts the libraries elsewhere (a cold build)
+BUILD_DIR = os.environ.get("T2ONET_TORCH_BUILD_DIR",
+                           os.path.join(_PKG, "_build"))
 
 # no --use_fast_math: the quotients need IEEE division; -fmad=false rounds
 # every multiply and add on its own, as the plain versions' separate

@@ -329,3 +329,36 @@ def fused_chain(imgs, op_slots, params, mask=None):
                            f"{lib.t2o_error_string(rc).decode()}")
     LAUNCHES["chain_masked" if masked else "chain"] += 1
     return out
+
+
+def fused_chain_sharded(imgs, op_slots, params, mesh, mask=None):
+    """`fused_chain` over a device mesh (counterpart of the JAX package's
+    `fused_chain_sharded`): the batch cut into the mesh's contiguous row
+    blocks, one `fused_chain` per shard on the shard's device (its
+    current CUDA stream there), no collectives (op chains are per-image).
+    The mesh's size must divide B.
+
+    :param imgs, op_slots, params, mask: as `fused_chain`'s: tensors,
+        whose shards are moved to their devices and whose results are
+        gathered back in order on imgs' device; or lists of the shards,
+        one per mesh entry and each on its device, and then the list of
+        the shards' results comes back, each where it ran.
+    :param mesh: `parallel.mesh.Mesh`, or a sequence of devices.
+    """
+    from t2onet_tpu_torch.parallel.mesh import as_mesh, shard_batch
+
+    mesh = as_mesh(mesh)
+    gather = isinstance(imgs, torch.Tensor)
+    if gather:
+        home = imgs.device
+        imgs, op_slots, params, mask = (
+            None if t is None else shard_batch(t, mesh)
+            for t in (imgs, op_slots, params, mask))
+    elif len(imgs) != mesh.size:
+        raise ValueError(f"{len(imgs)} shards for a mesh of {mesh.size}")
+    masks = [None] * mesh.size if mask is None else mask
+    outs = [fused_chain(i, s, p, mask=m)
+            for i, s, p, m in zip(imgs, op_slots, params, masks)]
+    if not gather:
+        return outs
+    return torch.cat([o.to(home) for o in outs])

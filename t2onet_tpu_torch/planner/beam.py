@@ -10,8 +10,13 @@ Arrays come in and go out as numpy; `device` says where the fits run
 A trained inpaint filler (`beam_search(inpaint_fn=)`) evaluates the
 inpaint candidate directly. A learned distance (`beam_search(score_fn=,
 score_aux=)`, the 'seq2seqGAN-disc' planner) scores candidates in place
-of the pixel distance. Not ported yet: sharded planning (`mesh`), which
-waits for multi-GPU (ROADMAP A6) and raises NotImplementedError.
+of the pixel distance.
+
+`batch_beam_search(mesh=)` splits the (pair x beam) axis over a
+`parallel.mesh.Mesh`: pairs padded to a multiple of its size with the
+last pair (padding pairs never search), each shard's fits on its device.
+Candidates are independent and Adam is elementwise, so no collective is
+needed: JAX's psum of the loss sum adds independent terms.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 
 from t2onet_tpu_torch.ops import bank
 from t2onet_tpu_torch.ops import operators as O
+from t2onet_tpu_torch.parallel.mesh import Mesh, as_mesh, pad_rows, shard_rows
 from t2onet_tpu_torch.planner import fit as Fit
 
 OP_NAMES = list(O.OP_NAMES)
@@ -35,20 +41,35 @@ def _dev(a, device):
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def _unported(mesh=None):
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded planning (mesh) waits for the multi-GPU port "
-            "(ROADMAP A6)")
-
-
 def _fit_step(I_buff: np.ndarray, target, op_slots, n_starts, n_iters, lr,
               init_key, op_masks=None, dist_type="l1", device="cuda",
-              score_fn=None, score_aux=None):
+              score_fn=None, score_aux=None, mesh=None):
     """One fit of all (beam, op, start) candidates, by the pixel distance
     to `target` or, with `score_fn`, by the learned distance. Returns
     (params (N,C,24), dists (N,C), outs (N,C,3,H,W)) as numpy, and the
-    candidate op index per column."""
+    candidate op index per column. With `mesh` the N rows are padded to a
+    multiple of its size with the last row and each row block is fitted
+    on its device; the padding is dropped."""
+    if mesh is not None and score_fn is not None:
+        raise ValueError(
+            "mesh and score_fn cannot be combined: learned-distance "
+            "scoring (seq2seqGAN-disc) runs single-device; drop mesh= or "
+            "use dist_type l1/l2 for sharded planning")
+    if mesh is not None:
+        mesh = as_mesh(mesh)
+        n_real = I_buff.shape[0]
+        imgs = pad_rows(I_buff, mesh.size)
+        tgts = pad_rows(np.broadcast_to(target, I_buff.shape), mesh.size)
+        row_masks = op_masks
+        if op_masks is not None and not isinstance(op_masks, dict):
+            row_masks = list(op_masks) + [op_masks[-1]] * (len(imgs) - n_real)
+        parts = [_fit_step(imgs[r], tgts[r], op_slots, n_starts, n_iters, lr,
+                           init_key, row_masks if isinstance(row_masks, dict)
+                           or row_masks is None else row_masks[r],
+                           dist_type, d)
+                 for r, d in zip(shard_rows(len(imgs), mesh), mesh.devices)]
+        return tuple(np.concatenate([pt[i] for pt in parts])[:n_real]
+                     for i in range(3)) + (parts[0][3],)
     op_slots = tuple(int(op) for op in op_slots)
     cand_ops = Fit.candidate_op_slots(op_slots, n_starts)
     init = _dev(Fit.init_candidates(op_slots, n_starts, key=init_key),
@@ -424,6 +445,9 @@ def batch_beam_search(
     (pair x beam x op x restart) candidate.
 
     :param I_0s, I_gts: (P, 3, H, W).
+    :param mesh: optional `parallel.mesh.Mesh` (or a sequence of
+        devices): the (pair x beam) axis of every fit is split over it,
+        in place of `device`; the replay runs on its first device.
     :param op_masks: optional per-pair mask conditioning, a list of P
         dicts {executor_op_idx: (1, H, W) float mask}.
     :param replay_beams: replay step images for only the first N beams
@@ -432,7 +456,9 @@ def batch_beam_search(
         (the same JPEGs, 4x fewer bytes).
     :return: list of per-pair (actions, images) like beam_search's.
     """
-    _unported(mesh=mesh)
+    if mesh is not None:
+        mesh = as_mesh(mesh)
+        device = mesh.devices[0]
     if mode not in ("plain", "eps", "fixed"):
         raise ValueError(f"unknown beam-search mode {mode!r} "
                          "(want plain | eps | fixed)")
@@ -443,7 +469,7 @@ def batch_beam_search(
         return _batch_beam_search_fused(
             I_0s, I_gts, beam_size, operations, max_step, err, mode,
             n_starts, n_iters, lr, replace, seed, dist_type, op_masks,
-            replay_beams, replay_uint8, device)
+            replay_beams, replay_uint8, mesh or Mesh([device]))
     rng = np.random.default_rng(seed)
     p = I_0s.shape[0]
     # per-pair host state
@@ -468,7 +494,7 @@ def batch_beam_search(
         params, dists, outs, cand_ops = _fit_step(
             flat, tgt, step_ops, n_starts, n_iters, lr,
             init_key=seed + step, dist_type=dist_type, op_masks=row_masks,
-            device=device)
+            device=device, mesh=mesh)
         params = params.reshape(p, n_beam, *params.shape[1:])
         dists = dists.reshape(p, n_beam, -1)
         outs = outs.reshape(p, n_beam, *outs.shape[1:])
@@ -532,33 +558,41 @@ def _batch_beam_search_fused(I_0s, I_gts, beam_size, operations, max_step,
                              err, mode, n_starts, n_iters, lr, replace,
                              seed, dist_type, op_masks=None,
                              replay_beams=None, replay_uint8=False,
-                             device="cuda"):
+                             mesh: Mesh = None):
     """Lockstep planning with the beam images on the device (plain and
     fixed modes).
 
-    Each step is one `fit_select_update` call: fit all (pair x beam x op
-    x restart) candidates, select the top k per pair, and compose the
-    next beam buffer, all on the device. Per step only (dists, params,
-    indices) come back to the host, whose bookkeeping mirrors the
-    device's composition rule (see fit_select_update)."""
-    p = I_0s.shape[0]
+    Each step is one `fit_select_update` call a shard of the mesh: fit
+    all (pair x beam x op x restart) candidates, select the top k per
+    pair, and compose the next beam buffer, all on the shard's device.
+    Per step only (dists, params, indices) come back to the host, whose
+    bookkeeping mirrors the device's composition rule (see
+    fit_select_update). The pairs are padded to a multiple of the mesh's
+    size with the last pair; padding pairs never search."""
+    p_real = I_0s.shape[0]
+    I_0s_d, I_gts_d = pad_rows(I_0s, mesh.size), pad_rows(I_gts, mesh.size)
+    p = I_0s_d.shape[0]
+    rows = shard_rows(p, mesh)
     states = [{
         "min_dist": float("inf"),
         "sequences": [([], float("inf"))],
-        "done": False,
-    } for _ in range(p)]
+        "done": pi >= p_real,            # padding pairs never search
+    } for pi in range(p)]
 
-    imgs = _dev(I_0s, device)[:, None]
-    tgts = _dev(I_gts, device)
+    imgs = [_dev(I_0s_d[r], d)[:, None] for r, d in zip(rows, mesh.devices)]
+    tgts = [_dev(I_gts_d[r], d) for r, d in zip(rows, mesh.devices)]
+    row_masks = (None if op_masks is None else
+                 list(op_masks) + [op_masks[-1]] * (p - p_real))
     mask_cache = {}
 
-    def masks_for(fos):
-        if op_masks is None:
+    def masks_for(fos, i):
+        if row_masks is None:
             return None
-        if fos not in mask_cache:
-            mask_cache[fos] = _op_mask_rows(list(op_masks), fos,
-                                            I_0s.shape[-2:], device)
-        return mask_cache[fos]
+        if (fos, i) not in mask_cache:
+            mask_cache[fos, i] = _op_mask_rows(row_masks[rows[i]], fos,
+                                               I_0s.shape[-2:],
+                                               mesh.devices[i])
+        return mask_cache[fos, i]
 
     for step in range(max_step):
         if mode == "fixed":
@@ -569,7 +603,7 @@ def _batch_beam_search_fused(I_0s, I_gts, beam_size, operations, max_step,
             break
         fos = tuple(int(op) for op in step_ops)
         n_ops = len(fos)
-        n_beam = imgs.shape[1]
+        n_beam = imgs[0].shape[1]
         allow = np.zeros((p, n_beam, n_ops), bool)
         thr = np.full((p,), np.inf, np.float32)
         for pi, st in enumerate(states):
@@ -583,16 +617,18 @@ def _batch_beam_search_fused(I_0s, I_gts, beam_size, operations, max_step,
                          for a in st["sequences"][j][0]})
                 for i, op in enumerate(fos):
                     allow[pi, j, i] = op not in used
-        init = _dev(Fit.init_candidates(fos, n_starts, key=seed + step),
-                    device)
-        imgs, sel_d, sel_params, sel_beam, sel_pos = Fit.fit_select_update(
-            imgs, tgts, init, _dev(allow, device), _dev(thr, device), fos,
-            n_starts, beam_size,
-            n_iters=n_iters, lr=lr, dist=dist_type, masks=masks_for(fos))
-        sel_d = sel_d.cpu().numpy()
-        sel_params = sel_params.cpu().numpy()
-        sel_beam = sel_beam.cpu().numpy()
-        sel_pos = sel_pos.cpu().numpy()
+        init = Fit.init_candidates(fos, n_starts, key=seed + step)
+        sel = []
+        for i, (r, d) in enumerate(zip(rows, mesh.devices)):
+            imgs[i], *out = Fit.fit_select_update(
+                imgs[i], tgts[i], _dev(init, d), _dev(allow[r], d),
+                _dev(thr[r], d), fos, n_starts, beam_size,
+                n_iters=n_iters, lr=lr, dist=dist_type,
+                masks=masks_for(fos, i))
+            sel.append(out)
+        sel_d, sel_params, sel_beam, sel_pos = (
+            np.concatenate([o[k].cpu().numpy() for o in sel])
+            for k in range(4))
 
         for pi, st in enumerate(states):
             if st["done"]:
@@ -620,10 +656,11 @@ def _batch_beam_search_fused(I_0s, I_gts, beam_size, operations, max_step,
                 st["done"] = True
 
     actions_list = [[list(seq) for seq, _ in st["sequences"]]
-                    for st in states]
+                    for st in states[:p_real]]
     reps = _replay_images_batch(I_0s, actions_list, op_masks,
                                 max_beams=replay_beams,
-                                uint8_wire=replay_uint8, device=device)
+                                uint8_wire=replay_uint8,
+                                device=mesh.devices[0])
     return list(zip(actions_list, reps))
 
 

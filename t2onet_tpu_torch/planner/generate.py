@@ -102,7 +102,8 @@ def plan_dataset_batched(pairs: Iterable, out_dir: str, phase: str = "train",
                          pair_batch: int = 8, limit: Optional[int] = None,
                          start_index: int = 0, **plan_kwargs):
     """Lockstep-batched planning: `pair_batch` pairs per fit (see
-    planner.beam.batch_beam_search). Writes the same per-pair layout."""
+    planner.beam.batch_beam_search; a `mesh` in plan_kwargs splits each
+    batch's fits over its devices). Writes the same per-pair layout."""
     os.makedirs(out_dir, exist_ok=True)
     buf, metas = [], []
     n, t_total = 0, time.time()

@@ -17,20 +17,30 @@ probe view and the execute. With `u8_wire` the execute sees the image
 quantized to 8 bits (clip before the cast) and its output comes back as
 uint8, so the numbers are those of the JAX engine's u8 wire.
 
-On a CUDA device the engine pipelines, as the JAX engine does with async
+The engine runs over a device mesh (`mesh=`, `parallel.mesh.Mesh`; a
+single device is a mesh of one). It keeps a replica of the actor and a
+CUDA stream on each distinct device. Each micro-batch is padded to a
+multiple of the mesh size with its last request (as the JAX engine
+pads), cut into the mesh's row blocks, each block decoded on its device
+and executed through `fused_chain_sharded` (one chain kernel a shard),
+and its outputs copied back into the batch's host buffers in request
+order.
+
+On CUDA devices the engine pipelines, as the JAX engine does with async
 dispatch: `launch` stacks each micro-batch into pinned host memory,
-uploads it, decodes and executes it on the engine's CUDA stream, copies
+uploads it, decodes and executes it on the engine's CUDA streams, copies
 the outputs into pinned host buffers without blocking and records an
-event after the copies; it returns while the card works. `readback`
-waits on each batch's event and assembles the results, in `io_threads`
-threads. The decode reads nothing back from the device (the request
-lengths go to the encoder from the host), so the host stacks batch k+1
-while the card runs batch k.
+event a device after the copies; it returns while the card works.
+`readback` waits on each batch's events and assembles the results, in
+`io_threads` threads. The decode reads nothing back from the device (the
+request lengths go to the encoder from the host), so the host stacks
+batch k+1 while the card runs batch k.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 import time
 import traceback
@@ -45,8 +55,9 @@ import torch.nn.functional as F
 from t2onet_tpu_torch.data.text import txt2idx
 from t2onet_tpu_torch.evals.bucketing import bucket_shape, pad_to_bucket
 from t2onet_tpu_torch.ops import bank
-from t2onet_tpu_torch.ops.chain import fused_chain, vocab_ops_to_slots
+from t2onet_tpu_torch.ops.chain import fused_chain_sharded, vocab_ops_to_slots
 from t2onet_tpu_torch.ops.operators import OP_NAMES
+from t2onet_tpu_torch.parallel.mesh import Mesh, as_mesh, shard_rows
 from t2onet_tpu_torch.precision import set_cuda_precision
 
 END_ID = 2
@@ -91,13 +102,13 @@ class _Pending:
 class _InFlight:
     """A launched micro-batch: its requests, their valid (h, w), the
     bucket, and its outputs on the host (pinned on a CUDA device, written
-    by copies that `event` follows; None on the CPU)."""
+    by copies that `events` follow, one a device; none on the CPU)."""
     chunk: List[_Pending]
     valids: List[Tuple[int, int]]
     bucket: Tuple[int, int]
     out: torch.Tensor                   # (B, 3, H, W) uint8 or f32
     meta: torch.Tensor                  # (B, S + S * 24) f32: ops, params
-    event: Optional[torch.cuda.Event]
+    events: List[torch.cuda.Event]
 
 
 class ServingEngine:
@@ -106,7 +117,8 @@ class ServingEngine:
     :param actor: `models.actor.Actor`; moved to `device` and set to eval.
     :param vocab2id: request token vocabulary.
     :param device: where decode and execute run ("cuda" needs a card,
-        and turns TF32 off; there is no fallback to the CPU).
+        and turns TF32 off; there is no fallback to the CPU): the mesh of
+        this one device when no mesh is given.
     :param decode_size: probe resolution of the decode stage.
     :param quantum, max_side: shape buckets (see evals.bucketing).
     :param max_batch: requests per micro-batch.
@@ -114,28 +126,42 @@ class ServingEngine:
         the probe (the reference's programs).
     :param use_pallas: execute through the chain kernel; False executes
         step by step through the bank (the name is the JAX engine's).
-    :param mesh: multi-device serving waits for the multi-GPU port.
+    :param mesh: optional `parallel.mesh.Mesh` (or a sequence of
+        devices) in place of `device`: micro-batches shard over it, a
+        replica of the actor on each distinct device; max_batch must
+        divide by its size.
     :param io_threads: threads that wait on launched micro-batches and
         assemble their results (1: the caller's thread, serially).
     """
 
-    def __init__(self, actor, vocab2id: Dict[str, int], *, device,
+    def __init__(self, actor, vocab2id: Dict[str, int], *, device=None,
                  decode_size: int = 128, quantum: int = 64,
                  max_side: int = 1024, max_batch: int = 8,
                  decode_native: bool = False, encoder_max_len: int = 17,
                  use_pallas: bool = True, u8_wire: bool = True, mesh=None,
                  io_threads: int = 8):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=) waits for the multi-GPU port "
-                "(ROADMAP A6)")
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
+        if (device is None) == (mesh is None):
+            raise ValueError("ServingEngine takes a device or a mesh")
+        if mesh is None:
+            mesh = [device]
+        devices = mesh.devices if isinstance(mesh, Mesh) else mesh
+        self._cuda = any(torch.device(d).type == "cuda" for d in devices)
+        if self._cuda:
             if not torch.cuda.is_available():
                 raise RuntimeError("ServingEngine(device='cuda') but no CUDA "
                                    "device is available")
             set_cuda_precision()
+        self.mesh = as_mesh(mesh)
+        self.device = self.mesh.devices[0]
+        if max_batch % self.mesh.size:
+            raise ValueError(f"max_batch {max_batch} not divisible by mesh "
+                             f"size {self.mesh.size}")
         self.actor = actor.to(self.device).eval()
+        # the actor on each distinct device of the mesh
+        self.replicas = {self.device: self.actor}
+        for d in self.mesh.distinct:
+            if d not in self.replicas:
+                self.replicas[d] = copy.deepcopy(self.actor).to(d).eval()
         self.vocab2id = vocab2id
         self.decode_size = decode_size
         self.quantum = quantum
@@ -147,30 +173,39 @@ class ServingEngine:
         self.u8_wire = u8_wire
         self.io_threads = max(1, io_threads)
         self._io_pool = None
-        self._stream = None             # the CUDA stream, made at first use
+        self._streams = {}              # a CUDA stream a device, at first use
         self._lock = threading.Lock()
         self._queue: List[_Pending] = []
         self.stats = {"requests": 0, "batches": 0, "launch_s": 0.0,
                       "sync_s": 0.0}
 
     # -- stages -----------------------------------------------------------
-    def _decode(self, x, dec_in, host_lengths):
-        out = self.actor.episode(x, dec_in, host_lengths=host_lengths)
+    def _decode(self, x, dec_in, host_lengths, device):
+        out = self.replicas[device].episode(x, dec_in,
+                                            host_lengths=host_lengths)
         return out["ops"], out["params"]
 
     def _execute(self, imgs, slots, params):
+        """Execute a batch: lists of its shards over the mesh, each on its
+        device (one `fused_chain_sharded` call)."""
         if self.u8_wire:
-            imgs = imgs.to(torch.float32) / 255.0
+            imgs = [i.to(torch.float32) / 255.0 for i in imgs]
+        params = [p.contiguous() for p in params]
         if self.use_pallas:
-            out = fused_chain(imgs, slots, params.contiguous())
+            outs = fused_chain_sharded(imgs, slots, params, self.mesh)
         else:
-            out = imgs
-            for k in range(slots.shape[1]):
-                vocab_ids = torch.where(slots[:, k] == 0, 0,
-                                        slots[:, k] + 2).long()
-                out, _ = bank.execute_bank(out, vocab_ids, params[:, k])
+            outs = [self._bank_chain(*a) for a in zip(imgs, slots, params)]
         if self.u8_wire:
-            out = torch.round(out * 255.0).to(torch.uint8)
+            outs = [torch.round(o * 255.0).to(torch.uint8) for o in outs]
+        return outs
+
+    @staticmethod
+    def _bank_chain(imgs, slots, params):
+        out = imgs
+        for k in range(slots.shape[1]):
+            vocab_ids = torch.where(slots[:, k] == 0, 0,
+                                    slots[:, k] + 2).long()
+            out, _ = bank.execute_bank(out, vocab_ids, params[:, k])
         return out
 
     def _wire(self, stack):
@@ -200,21 +235,21 @@ class ServingEngine:
         return img
 
     def _host(self, shape, dtype):
-        """A host buffer: pinned for a CUDA device (non-blocking copies)."""
-        return torch.empty(shape, dtype=dtype,
-                           pin_memory=self.device.type == "cuda")
+        """A host buffer: pinned where a card runs (non-blocking copies)."""
+        return torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
 
-    def _on_stream(self):
-        """The engine's CUDA stream as the current one (on a CUDA device);
+    def _on_stream(self, device):
+        """The engine's CUDA stream on `device` as the current one there;
         it first waits for the caller's stream, where the weights were
-        written."""
-        if self.device.type != "cuda":
+        written. Nothing on the CPU."""
+        if device.type != "cuda":
             return contextlib.nullcontext()
-        with self._lock:                # one stream, whichever thread asks
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        return torch.cuda.stream(self._stream)
+        with self._lock:            # one stream a device, whichever thread
+            if device not in self._streams:
+                self._streams[device] = torch.cuda.Stream(device)
+            stream = self._streams[device]
+        stream.wait_stream(torch.cuda.current_stream(device))
+        return torch.cuda.stream(stream)
 
     # -- batch path ---------------------------------------------------------
     def edit_batch(self, images: Sequence[np.ndarray],
@@ -288,41 +323,69 @@ class ServingEngine:
                     self.stats["launch_s"] += time.time() - t0
                 yield rec
 
+    def _decode_input(self, stack_d, valids):
+        """The decode's input: the padded stack itself (decode_native), or
+        each image's valid region resized to the probe on the device."""
+        if self.decode_native:
+            return stack_d
+        ds = self.decode_size
+        return torch.cat([resize_bilinear(stack_d[j:j + 1, :, :h, :w], ds, ds)
+                          for j, (h, w) in enumerate(valids)])
+
     @torch.inference_mode()
     def _launch_chunk(self, chunk: List[_Pending], bucket) -> _InFlight:
+        """Pad the micro-batch to a multiple of the mesh size with its
+        last request, upload, decode and execute each row block on its
+        device, and copy every output into the batch's host buffers
+        (pinned where a card runs, with an event a card after the
+        copies)."""
+        m = self.mesh
         padded, valids = zip(*(pad_to_bucket(p.img, self.quantum,
                                              self.max_side) for p in chunk))
         n = len(chunk)
-        stack = self._host((n, 3) + bucket, torch.float32)
-        np.stack(padded, out=stack.numpy())
-        tokens = self._host((n, self.encoder_max_len), torch.int64)
-        np.stack([p.x_idx for p in chunk], out=tokens.numpy())
+        pad = (-n) % m.size
+        valids_p = list(valids) + [valids[-1]] * pad
+        stack = self._host((n + pad, 3) + bucket, torch.float32)
+        np.stack(list(padded) + [padded[-1]] * pad, out=stack.numpy())
+        tokens = self._host((n + pad, self.encoder_max_len), torch.int64)
+        np.stack([p.x_idx for p in chunk] + [chunk[-1].x_idx] * pad,
+                 out=tokens.numpy())
         host_lengths = (tokens != 0).sum(dim=1)
-        with self._on_stream():
-            stack_d = stack.to(self.device, non_blocking=True)
-            x = tokens.to(self.device, non_blocking=True)
-            if self.decode_native:
-                dec_in = stack_d
-            else:
-                ds = self.decode_size
-                dec_in = torch.cat([
-                    resize_bilinear(stack_d[j:j + 1, :, :h, :w], ds, ds)
-                    for j, (h, w) in enumerate(valids)])
-            ops, params = self._decode(x, dec_in, host_lengths)
-            out = self._execute(self._wire(stack_d), program_slots(ops),
-                                params)
-            meta = torch.cat([ops.to(torch.float32),
-                              params.reshape(n, -1)], dim=1)
-            event = None
-            if self._stream is not None:
-                out_h = self._host(out.shape, out.dtype)
-                meta_h = self._host(meta.shape, meta.dtype)
-                out_h.copy_(out, non_blocking=True)
-                meta_h.copy_(meta, non_blocking=True)
-                out, meta = out_h, meta_h
-                event = torch.cuda.Event()
-                event.record(self._stream)
-        return _InFlight(list(chunk), list(valids), bucket, out, meta, event)
+        rows = shard_rows(n + pad, m)
+        with contextlib.ExitStack() as streams:
+            for d in m.distinct:
+                streams.enter_context(self._on_stream(d))
+            wires, ops, params = [], [], []
+            for r, d in zip(rows, m.devices):
+                stack_d = stack[r].to(d, non_blocking=True)
+                o, p = self._decode(tokens[r].to(d, non_blocking=True),
+                                    self._decode_input(stack_d, valids_p[r]),
+                                    host_lengths[r], d)
+                wires.append(self._wire(stack_d))
+                ops.append(o)
+                params.append(p)
+            outs = self._execute(wires, [program_slots(o) for o in ops],
+                                 params)
+            out_h = self._host((n + pad,) + tuple(outs[0].shape[1:]),
+                               outs[0].dtype)
+            meta_h = self._host((n + pad, ops[0].shape[1] * (1 + MAX_PARAM)),
+                                torch.float32)
+            for r, out, o, p in zip(rows, outs, ops, params):
+                out_h[r].copy_(out, non_blocking=True)
+                meta_h[r].copy_(torch.cat([o.to(torch.float32),
+                                           p.reshape(p.shape[0], -1)], dim=1),
+                                non_blocking=True)
+            events = [self._record(d) for d in m.distinct
+                      if d.type == "cuda"]
+        return _InFlight(list(chunk), list(valids), bucket, out_h[:n],
+                         meta_h[:n], events)
+
+    def _record(self, device):
+        """An event on the engine's stream of `device`, after the work
+        queued there."""
+        event = torch.cuda.Event()
+        event.record(self._streams[device])
+        return event
 
     def launch(self, pending: List[_Pending]) -> List[_InFlight]:
         """Launch every micro-batch; returns the in-flight records for
@@ -341,8 +404,8 @@ class ServingEngine:
     def _assemble(self, rec: _InFlight) -> None:
         """Wait for a launched batch's copies, then set each request's
         result and .done."""
-        if rec.event is not None:
-            rec.event.synchronize()
+        for event in rec.events:
+            event.synchronize()
         out_np, meta_np = rec.out.numpy(), rec.meta.numpy()
         n_steps = meta_np.shape[1] // (1 + MAX_PARAM)
         ops_np = meta_np[:, :n_steps].astype(np.int32)
@@ -402,27 +465,33 @@ class ServingEngine:
     def device_compute_probe(self, size: int = 512, iters: int = 10,
                              request: str = "increase the brightness"):
         """Decode + execute ms per micro-batch of max_batch requests with
-        the inputs already on the device and nothing read back but a
-        barrier: the part of serving's cost that host transfers and host
+        the inputs already on the mesh's devices and nothing read back but
+        a barrier: the part of serving's cost that host transfers and host
         preparation do not move. Best of 3 runs of `iters` calls. Call
         warmup() first."""
         n = self.max_batch
-        x_np = np.stack([self._tokenize(request)] * n)
-        x = torch.from_numpy(x_np).to(self.device)
+        per = n // self.mesh.size
+        x_np = np.stack([self._tokenize(request)] * per)
         host_lengths = torch.from_numpy((x_np != 0).sum(axis=1))
-        native = self._wire(torch.full((n, 3, size, size), 0.5,
-                                       device=self.device))
         ps = size if self.decode_native else self.decode_size
-        dec = torch.full((n, 3, ps, ps), 0.5, device=self.device)
+        shards = [(d, torch.from_numpy(x_np).to(d),
+                   self._wire(torch.full((per, 3, size, size), 0.5,
+                                         device=d)),
+                   torch.full((per, 3, ps, ps), 0.5, device=d))
+                  for d in self.mesh.devices]
 
         def once():
-            ops, params = self._decode(x, dec, host_lengths)
-            return self._execute(native, program_slots(ops), params)
+            decoded = [self._decode(x, dec, host_lengths, d)
+                       for d, x, _, dec in shards]
+            return self._execute([native for _, _, native, _ in shards],
+                                 [program_slots(o) for o, _ in decoded],
+                                 [p for _, p in decoded])
 
-        def barrier(out):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            return out[0, 0, 0, :1].cpu()
+        def barrier(outs):
+            for d in self.mesh.distinct:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
+            return [o[0, 0, 0, :1].cpu() for o in outs]
 
         barrier(once())
         best = float("inf")

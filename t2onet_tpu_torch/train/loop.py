@@ -18,6 +18,17 @@ or sampling) gets a zero gradient, so that its moments decay and its
 update follows from them, as optax treats a missing gradient. Each step
 returns its metrics as tensors on the actor's device and reads nothing
 back to the host.
+
+Data parallelism (`parallel/mesh.py`): under a group of W ranks each
+rank steps on its rows of the global batch. The losses take their
+divisors from the global batch (the position mask's any, the batch size,
+the nonzero ground-truth params, the bins' mask, the L1's element
+count), the episode's noise is drawn for the global batch and each rank
+keeps its rows, BatchNorm normalises with the global statistics, and
+`apply_gradients` sums the gradients over the ranks: the step at world
+size W is the step of world size 1 up to the order of summation. The
+returned metrics are the global batch's. At world size 1 nothing of this
+runs.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import torch
 from t2onet_tpu_torch.models.actor import Actor, select_end_images
 from t2onet_tpu_torch.ops import bank
 from t2onet_tpu_torch.ops.color import abs_
+from t2onet_tpu_torch.parallel import mesh
 
 
 class TrainState:
@@ -40,29 +52,85 @@ class TrainState:
         self.step = 0
 
     def apply_gradients(self, loss):
-        """Backpropagate `loss` and take one Adam step over every
-        trainable parameter. The gradients stay in `.grad` until the next
-        step."""
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        self.opt.step()
+        """Backpropagate `loss`, sum the gradients over the data-parallel
+        ranks and take one Adam step over every trainable parameter. The
+        gradients stay in `.grad` until the next step."""
+        adam_step(self.opt, self.params, loss)
         self.step += 1
+
+
+def adam_step(opt, params, loss):
+    """Backpropagate `loss` and step `opt` over `params`: a parameter the
+    loss does not reach gets a zero gradient, as optax treats a missing
+    one; under a data-parallel group the gradients are summed over the
+    ranks first."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    mesh.sync_gradients(params)
+    opt.step()
+
+
+def global_metrics(metrics):
+    """Detached metrics, each a rank's share of a global loss, summed over
+    the ranks in one all-reduce: the global batch's values."""
+    if not mesh.active():
+        return {k: v.detach() for k, v in metrics.items()}
+    keys = list(metrics)
+    vals = torch.stack([metrics[k].detach() for k in keys])
+    vals = mesh.global_sum(vals)
+    return {k: vals[i] for i, k in enumerate(keys)}
+
+
+def global_draws(generator=None, noise_fn=None, normal_fn=None):
+    """(noise_fn, normal_fn) for `Actor.episode` under a data-parallel
+    group: each draw is made for the global batch (from the fed function,
+    or from `generator`, seeded alike on every rank) and the rank keeps
+    its rows, so that every rank sees world size 1's draws. The functions
+    as given at world size 1."""
+    if not mesh.active():
+        return noise_fn, normal_fn
+    w = mesh.world_size()
+
+    def rows(kind, fed):
+        def fn(shape):
+            full = (shape[0] * w,) + tuple(shape[1:])
+            if fed is not None:
+                draw = fed(full)
+            elif generator is None:
+                raise ValueError(f"a {kind} draw needs a generator or a fed "
+                                 f"noise function")
+            elif kind == "gumbel":
+                draw = bank.gumbel_noise(full, generator)
+            else:
+                draw = torch.randn(full, generator=generator,
+                                   device=generator.device)
+            return mesh.rows_of(draw)
+        return fn
+
+    return rows("gumbel", noise_fn), rows("normal", normal_fn)
 
 
 def supervised_losses(logprobs, pred_params, y, gt_params, null_id: int = 0):
     """(op_loss, param_loss). logprobs (B, T-1, n_cls); pred_params
     (B, T-2, 24); y (B, T); gt_params (B, T-2, 24)."""
-    b = logprobs.shape[0]
     targets = y[:, 1:].long()
     # position i is inside the batch-max step iff any sample still has a
-    # non-NULL token there (y is left-packed)
-    pos_mask = (targets != null_id).any(dim=0).to(logprobs.dtype)
+    # non-NULL token there (y is left-packed); the global batch's mask,
+    # batch size and nonzero count under data parallelism
+    pos_any = (targets != null_id).any(dim=0)
+    nnz = (gt_params != 0).sum()
+    b = logprobs.shape[0]
+    if mesh.active():
+        counts = mesh.global_sum(torch.cat([
+            pos_any.to(torch.int64), nnz.view(1),
+            torch.tensor([b], device=nnz.device)]))
+        pos_any, nnz, b = counts[:-2] > 0, counts[-2], counts[-1]
+    pos_mask = pos_any.to(logprobs.dtype)
     nll = -torch.gather(logprobs, 2, targets[:, :, None])[..., 0]
     op_loss = (nll * pos_mask[None, :]).sum() / (b * pos_mask.sum())
-    nnz = (gt_params != 0).sum()
     param_loss = ((pred_params - gt_params) ** 2).sum() / torch.clamp_min(
         nnz, 1)
     return op_loss, param_loss
@@ -84,18 +152,20 @@ def discrete_param_loss(bin_logp, y, gt_params, opcfg, num: int = 10):
         -1, -1, 1, num))[:, :, 0]                           # (B, S, num)
     lp = torch.gather(lp_op, 2, bins[:, :, None])[..., 0]
     mask = (sup & (gt_scalar != 0)).to(lp.dtype)
-    return -(lp * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return -(lp * mask).sum() / torch.clamp_min(mesh.global_sum(mask.sum()),
+                                                1.0)
 
 
 def episode_l1_loss(imgs, ops, gt_img, end_id: int = 2):
     """Mean L1 between the <END>-selected rollout image and gt."""
     pred = select_end_images(imgs, ops, end_id)
-    return abs_(pred - gt_img).mean()
+    return mesh.global_mean(abs_(pred - gt_img))
 
 
 def supervised_step(state: TrainState, batch, per_step_bn: bool = False):
     """batch: x (B,L), y (B,T), img_x (B,3,H,W), img_y (B,T-1,3,H,W),
-    gt_params (B,T-2,24), all on the actor's device. `per_step_bn`: one
+    gt_params (B,T-2,24), all on the actor's device (under data
+    parallelism, this rank's rows). `per_step_bn`: one
     ResNet forward per decode step (`Actor.supervised`)."""
     actor = state.actor
     actor.train()
@@ -109,8 +179,8 @@ def supervised_step(state: TrainState, batch, per_step_bn: bool = False):
             actor.cfg.discrete_step)
     loss = op_loss + param_loss
     state.apply_gradients(loss)
-    return {"loss": loss.detach(), "op_loss": op_loss.detach(),
-            "param_loss": param_loss.detach()}
+    return global_metrics({"loss": loss, "op_loss": op_loss,
+                           "param_loss": param_loss})
 
 
 def episode_step(state: TrainState, batch, generator=None, sample=True,
@@ -119,10 +189,12 @@ def episode_step(state: TrainState, batch, generator=None, sample=True,
     local edits masks_vocab (B,n_cls,1,H,W), the per-op masks each
     rollout step gathers by its predicted op. With `sample`, ops (and in
     the discrete mode bins) are drawn with Gumbel noise from `generator`
-    (or `noise_fn`); `fused_exec` executes each step through
+    (or `noise_fn`; under data parallelism both give the global batch's
+    draws, `global_draws`); `fused_exec` executes each step through
     `ops.step.fused_step`; `probe_size` decodes each step at that
     resolution while execution and the L1 stay at the batch's."""
     state.actor.train()
+    noise_fn, _ = global_draws(generator, noise_fn)
     out = state.actor.episode(batch["x"], batch["img_x"], sample=sample,
                               generator=generator, noise_fn=noise_fn,
                               fused_exec=fused_exec,
@@ -130,7 +202,7 @@ def episode_step(state: TrainState, batch, generator=None, sample=True,
                               probe_size=probe_size)
     loss = episode_l1_loss(out["imgs"], out["ops"], batch["gt_img"])
     state.apply_gradients(loss)
-    return {"L1_loss": loss.detach()}
+    return global_metrics({"L1_loss": loss})
 
 
 @torch.no_grad()

@@ -16,6 +16,10 @@ the operator chain, with the reference's entropy penalty.
 The rollout samples on policy (the CLI sets explore_prob 0), optionally
 with noise on the parameters, and executes through the bank, as the JAX
 package's `make_rl_step` does: it launches no kernel.
+
+Under a data-parallel group (`parallel/mesh.py`) the baseline and the
+spread are the global batch's, every mean divides by the global batch,
+and the draws are the global batch's rows, as in `train/loop.py`.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ import torch
 from t2onet_tpu_torch.models.actor import (get_entropy_penalty,
                                            select_end_images)
 from t2onet_tpu_torch.ops.color import abs_
-from t2onet_tpu_torch.train.loop import TrainState
+from t2onet_tpu_torch.parallel import mesh
+from t2onet_tpu_torch.train.loop import (TrainState, global_draws,
+                                         global_metrics)
 
 ENTROPY_FACTOR = 0.01
 PG_WEIGHT = 0.1
@@ -48,18 +54,30 @@ def rl_losses(out, gt_img, end_id: int = 2,
 
     reward = -per_sample_l1
     with torch.no_grad():
-        baseline = reward.mean()
-        spread = reward.std(correction=0) + 1e-4
-        adv = (reward - baseline) / spread
+        baseline, spread = _mean_std(reward)
+        adv = (reward - baseline) / (spread + 1e-4)
     n_steps = torch.clamp_min(step_w.sum(dim=1), 1.0)
-    pg_loss = -((adv[:, None] * chosen_lp * step_w).sum(dim=1)
-                / n_steps).mean()
-    ent_loss = (get_entropy_penalty(logprobs)[..., 0] * step_w) \
-        .sum(dim=1).mean()
-    l1_loss = per_sample_l1.mean()
+    pg_loss = -mesh.global_mean((adv[:, None] * chosen_lp * step_w)
+                                .sum(dim=1) / n_steps)
+    ent_loss = mesh.global_mean(
+        (get_entropy_penalty(logprobs)[..., 0] * step_w).sum(dim=1))
+    l1_loss = mesh.global_mean(per_sample_l1)
     total = l1_loss + pg_weight * pg_loss + entropy_factor * ent_loss
     return total, {"rl_l1": l1_loss, "rl_pg": pg_loss,
-                   "rl_entropy": ent_loss, "rl_reward": reward.mean()}
+                   "rl_entropy": ent_loss,
+                   "rl_reward": mesh.global_mean(reward)}
+
+
+def _mean_std(x):
+    """The mean and biased spread of (B,) `x` over the global batch (two
+    passes, as jnp.std); x.mean(), x.std(correction=0) at world size 1."""
+    if not mesh.active():
+        return x.mean(), x.std(correction=0)
+    n = mesh.global_sum(torch.tensor(float(x.numel()), dtype=x.dtype,
+                                     device=x.device))
+    mean = mesh.global_sum(x.sum()) / n
+    var = mesh.global_sum(((x - mean) ** 2).sum()) / n
+    return mean, torch.sqrt(var)
 
 
 def rl_step(state: TrainState, batch, generator=None,
@@ -73,6 +91,7 @@ def rl_step(state: TrainState, batch, generator=None,
     (Gumbel) and `normal_fn` (normal) as `Actor.episode` takes them.
     Returns the metrics as tensors on the device."""
     state.actor.train()
+    noise_fn, normal_fn = global_draws(generator, noise_fn, normal_fn)
     out = state.actor.episode(batch["x"], batch["img_x"], sample=True,
                               generator=generator, noise_fn=noise_fn,
                               normal_fn=normal_fn, param_noise=param_noise)
@@ -80,5 +99,4 @@ def rl_step(state: TrainState, batch, generator=None,
                                entropy_factor=entropy_factor,
                                pg_weight=pg_weight)
     state.apply_gradients(total)
-    return {"rl_loss": total.detach(),
-            **{k: v.detach() for k, v in metrics.items()}}
+    return global_metrics({"rl_loss": total, **metrics})

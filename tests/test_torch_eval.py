@@ -375,6 +375,7 @@ def test_set_cuda_precision_turns_tf32_off(monkeypatch):
                             lambda: calls.append(1))
         actor = torch.nn.Linear(1, 1)
         monkeypatch.setattr(actor, "to", lambda device: actor)
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
         serve.ServingEngine(actor, {}, device="cuda")
         assert calls == [1]
     finally:

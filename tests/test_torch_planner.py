@@ -248,12 +248,17 @@ def test_beam_search_matches_jax(mode):
 
 
 def test_unported_arguments_raise():
-    """Sharded planning waits for multi-GPU (A6). A learned distance is
-    no pixel dist_type, as in JAX: it goes through score_fn, which
-    beam_search takes (tests/test_torch_gan_planner.py)."""
+    """A mesh with a learned distance raises, as in JAX (sharded planning
+    itself: tests/test_torch_parallel.py). A learned distance is no pixel
+    dist_type, as in JAX: it goes through score_fn, which beam_search
+    takes (tests/test_torch_gan_planner.py)."""
+    from t2onet_tpu_torch.parallel.mesh import make_mesh
+
     x, y, _ = fivek_pairs(1)
-    with pytest.raises(NotImplementedError, match="A6"):
-        beam.batch_beam_search(x, y, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mesh and score_fn"):
+        beam._fit_step(x, y, [0], 1, 1, 0.05, 0, device="cpu",
+                       score_fn=lambda outs, aux: outs.mean(),
+                       mesh=make_mesh(n_devices=2, device="cpu"))
     with pytest.raises(ValueError, match="score_fn"):
         beam.normalize_dist_type("seq2seqGAN-disc")
     assert beam.normalize_dist_type("L2") == "l2"
@@ -360,11 +365,13 @@ def test_plan_fivek_cli_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--data_parallel", "2"]])
-def test_plan_fivek_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        plan_fivek.plan_parser().parse_args(flag)
-    err = capsys.readouterr().err
-    assert flag[0] in err and "A6" in err
+def test_plan_fivek_refuses_unported_flags(flag):
+    """--data_parallel parses, and plan_fivek refuses it without a
+    lockstep batch, as JAX's does (the sharded planner itself:
+    tests/test_torch_parallel.py)."""
+    assert plan_fivek.plan_parser().parse_args(flag).data_parallel == 2
+    with pytest.raises(SystemExit, match="--pair_batch > 1"):
+        plan_fivek.main(flag + ["--device", "cpu", "--synthetic"])
 
 
 @pytest.mark.parametrize("flag, dest, value", [
