@@ -5,6 +5,7 @@ on one CUDA card.
     python3 chip_smoke.py --phases 4b,serve_pipeline,http,inpaint,demo_plan
     python3 chip_smoke.py --phases gan,gan_plan,fid,pix2pixhd
     python3 chip_smoke.py --phases dp,mesh_serve,mesh_plan
+    python3 chip_smoke.py --phases ops_extra,convert,supervisor,tp_heads
 
 The second form runs the named phases alone after phases 1-3 (the
 eval's checkpoint that demo_plan reads is written without the eval) and
@@ -227,7 +228,32 @@ line. Phases (any failure exits non-zero): (any failure exits non-zero):
    sums the fits' reductions in another order): where the ops agree,
    each step's distance within PLAN_DIST_TOL; where they part, the final
    distances within MESH_PART_TOL; no kernel; `cli.plan_fleet --workers
-   2` on 8 pairs, then `--verify_only`.
+   2` on 8 pairs, then `--verify_only`;
+32. ops_extra: the HSV round trip and exposure, bnw, blur, hue and white
+   balance at b8 x 512², card f32 against CPU f64, forward and
+   vector-Jacobian products (EXTRA_* bounds); `ops.reverse`'s fits
+   (brightness, the strong-brightness plateau, contrast, sharpness <->
+   blur) on the card against the CPU: the same success flag, parameters
+   within REVERSE_PARAM_ATOL; `cli.op_sweep` on a FiveK image at 512²
+   on the card: the CPU's file list and arrays; no kernel;
+33. convert: a full-width actor's state_dict with nonzero second LSTM
+   biases as a reference model.pth, `python -m t2onet_tpu_torch convert
+   --kind actor` (the dispatcher, in this process), `test_fivek` from that
+   run directory on the first 8 FiveK test pairs (B1 5 a pair and nothing
+   else), its programs those of the actor in memory and its images within
+   CONVERT_IMG_ATOL; `--kind gan` with the reference discriminator (ndf
+   64, 3 layers, 2 scales): the disc/ twin equal to it;
+34. supervisor: `cli.train_supervisor` around a full-width `train_fivek
+   --synthetic` (b64 x 128², 8 iterations, a checkpoint every 4) that a
+   wrapper it writes makes exit 1 once, after the checkpoint at 4: the
+   restart takes --resume, keeps the numbering and finishes at 8, with
+   B1 15 and B3 10 in the resumed run;
+35. tp_heads: two gloo ranks on cuda:0 as a (1 x 2) grid, each computing
+   and stepping four of the eight parameter heads, one supervised and one
+   fused episode step at full width on b64 x 128²: each rank against one
+   process within phase 9's bounds, B1 5 + B3 5 a rank, each rank's Adam
+   holding moments for its own heads only; `python -m t2onet_tpu_torch
+   help`.
 
 The last three lines of stdout are the kernels JSON line, the card's
 name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
@@ -244,6 +270,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -3978,13 +4005,10 @@ def dp_nccl_phase():
     return res
 
 
-def dp_step_cases():
-    """29 (b)'s one-step cases at full width, 128 px, global b64, the same
-    noise fed: a supervised and a fused FiveK episode step (synthetic
-    batch), and a fused masked GIER episode step on the real GIER data."""
-    from t2onet_tpu_torch.data.gier import GIERDatasetAct
-    from t2onet_tpu_torch.data.text import load_embedding
-
+def fivek_step_cases(g):
+    """A supervised and a fused FiveK episode step at full width on a
+    synthetic b64 x 128² batch, the noise drawn from generator g and fed
+    (phases 29 (b), 35)."""
     cfg = ModelConfig()
     vocab = synthetic_vocab()
     actor = Actor(cfg, OperatorConfig(), len(vocab),
@@ -3993,7 +4017,6 @@ def dp_step_cases():
     sd = {k: v.clone() for k, v in actor.state_dict().items()}
     nb = next(SyntheticFiveK(n=64, img_size=128, seed=9)
               .batches(64, 1, shuffle=False))
-    g = torch.Generator().manual_seed(11)
     base = dict(cfg=dataclasses.asdict(cfg), vocab_size=len(vocab),
                 state_dict=sd, full="rank0")
     cases = [dict(base, name="supervised", kind="supervised",
@@ -4003,6 +4026,18 @@ def dp_step_cases():
                          "gt_img": nb["img_y"][:, -1]},
                   gumbel=[bank.gumbel_noise((64, cfg.op_vocab_size), g)
                           .numpy() for _ in range(cfg.decoder_max_len)])]
+    return cases
+
+
+def dp_step_cases():
+    """29 (b)'s one-step cases at full width, 128 px, global b64, the same
+    noise fed: `fivek_step_cases`, and a fused masked GIER episode step on
+    the real GIER data."""
+    from t2onet_tpu_torch.data.gier import GIERDatasetAct
+    from t2onet_tpu_torch.data.text import load_embedding
+
+    g = torch.Generator().manual_seed(11)
+    cases = fivek_step_cases(g)
     glove = load_embedding(GLOVE_NPY)
     ds = GIERDatasetAct(os.path.join("data_real_gier", "GIER"),
                         os.path.join("data_real_gier", "language"),
@@ -4333,12 +4368,518 @@ def mesh_plan_phase():
             "fleet": json.loads(p.stdout.strip().splitlines()[-1])}
 
 
+# -- phases 32-35 -------------------------------------------------------------
+# Phase 32's bounds, stated before its first run on the card from the
+# CPU's f32-vs-f64 gaps at 512² (largest: forward 3.8e-7, image gradient
+# 1.6e-6 anywhere and 1.2e-7 of its norm, a parameter's gradient 1.5e-6
+# of itself), with room for the card's own rounding (fused multiply-adds)
+EXTRA_FWD_ATOL = 1e-5          # card f32 against CPU f64, any element
+EXTRA_GRAD_ATOL = 1e-4         # the image's gradient, any element
+EXTRA_GRAD_REL = 1e-5          # the image's gradient, of its norm
+EXTRA_PARAM_RTOL = 1e-4        # each parameter gradient, of itself
+# The first run of this phase on an H100 80GB HBM3 at 700 W read the
+# round trip's image gradient 2.92e-2 from f64 at one element (1.65e-5 of
+# the norm): a pixel whose hue the card's f32 and the CPU's f64 floor
+# into neighbouring sextants. Such pixels are
+# left out of that gradient's gaps (`sextant_flips`) and counted; the
+# r == g > b patches (hue exactly 1/6) are 512 of them at most
+SEXTANT_FLIPS_MAX = 1024
+REVERSE_PARAM_ATOL = 1e-4      # a reverse fit's parameters, card vs CPU
+EXTRA_OPS = {"exposure": 1, "bnw": 1, "blur": 1, "hue": 1,
+             "whitebalance": 3}
+SWEEP_DIR = os.path.join("output", "chip_smoke_sweep")
+SWEEP_ATOL = 1e-5              # a sweep's image, card against CPU, f32
+
+
+def interior_images(b, size, seed):
+    """b random images in [0.02, 0.98] with gray and r == g > b patches
+    (HSV's ties) and no pixel at a clamp's edge, where f32 and f64 may
+    take the clamp on different sides."""
+    img = np.random.default_rng(seed).uniform(
+        0.02, 0.98, (b, 3, size, size)).astype(np.float32)
+    img[:, :, 0:8, 0:8] = 0.5
+    img[:, 0:2, 8:16, 0:8] = 0.8
+    img[:, 2, 8:16, 0:8] = 0.3
+    return img
+
+
+def card_vs_f64(fn, args, cot, skip=None):
+    """fn and its VJP with cotangent `cot` on the card in f32 and on the
+    CPU in f64: (forward max gap, [(grad max gap, grad gap / norm,
+    largest gap of an entry relative to itself)] per argument). `skip`
+    (bool, the first argument's shape) leaves entries out of the first
+    argument's gradient gaps."""
+    outs = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        ts = [torch.tensor(a, dtype=dtype, device=dev, requires_grad=True)
+              for a in args]
+        out = fn(*ts)
+        g = torch.autograd.grad(out, ts, torch.as_tensor(cot, dtype=dtype,
+                                                         device=dev))
+        outs[dev] = (out.detach().double().cpu(),
+                     [x.double().cpu() for x in g])
+    (oc, gc), (op, gp) = outs["cuda"], outs["cpu"]
+    if skip is not None:
+        gc[0], gp[0] = gc[0][~skip], gp[0][~skip]
+    grads = [(float((a - b).abs().max()),
+              float((a - b).norm() / b.norm()),
+              float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()))
+             for a, b in zip(gc, gp)]
+    return float((oc - op).abs().max()), grads
+
+
+def sextant_flips(img):
+    """(B, 3, H, W) bool: the pixels whose hue the card's f32 puts in
+    another sextant than the CPU's f64 (floor of h·6 on either side of an
+    integer). The branchless round trip is continuous there, but its
+    gradient is not: the two sides' formulas differ in the hue's
+    gradient, in JAX's form too."""
+    from t2onet_tpu_torch.ops import color
+
+    def sextant(x):
+        h = color.rgb_to_hsv(x)[0]
+        return torch.floor(torch.remainder(h, 1.0) * 6.0).cpu()
+
+    t = torch.from_numpy(img)
+    flips = sextant(t.cuda()) != sextant(t.double())
+    return flips.expand(-1, 3, -1, -1)
+
+
+def reverse_cases():
+    """(name, img, edited, forward param, forward op) of the reverse
+    fits of tests/test_torch_ops_extra.py, the edits made on the CPU."""
+    from t2onet_tpu_torch.cli.op_sweep import procedural_image
+    from t2onet_tpu_torch.ops import reverse
+
+    img7 = np.clip(np.random.default_rng(7).uniform(
+        0.2, 0.8, (1, 3, 16, 16)), 0, 1).astype(np.float32)
+    img0 = np.random.default_rng(0).uniform(
+        0.05, 0.4, (1, 3, 24, 24)).astype(np.float32)
+    smooth = procedural_image(16)
+    out = []
+    for name, img, p, op in (("brightness", img7, 0.3, "brightness"),
+                             ("plateau", img0, 1.5, "brightness"),
+                             ("contrast", img7, 0.4, "contrast"),
+                             ("sharpness", smooth, 0.5, "sharpness"),
+                             ("blur", smooth, 0.6, "blur")):
+        edited = reverse.apply_operator(img, None, [p], op,
+                                        device="cpu").numpy()
+        out.append((name, img, edited, [p], op))
+    return out
+
+
+def ops_extra_phase():
+    """32: the HSV round trip and the five extra operators at b8 x 512²,
+    card f32 against CPU f64, forward and VJPs; the reverse fits on the
+    card against the CPU; `cli.op_sweep` on the card: the CPU's file list
+    and images."""
+    from t2onet_tpu_torch.cli import op_sweep
+    from t2onet_tpu_torch.ops import color
+    from t2onet_tpu_torch.ops import operators as O
+    from t2onet_tpu_torch.ops import reverse
+
+    reset_launches()
+    b, size = 8, 512
+    img = interior_images(b, size, seed=12)
+    rng = np.random.default_rng(13)
+    cot = rng.normal(size=img.shape).astype(np.float32)
+    out, bad = {}, []
+    t0 = time.perf_counter()
+    flips = sextant_flips(img)
+    fwd, grads = card_vs_f64(lambda i: color.hsv_to_rgb(
+        *color.rgb_to_hsv(i)), [img], cot, skip=flips)
+    out["hsv_round_trip"] = {"fwd": fwd, "img_grad": grads[0],
+                             "sextant_flips": int(flips[:, 0].sum())}
+    if fwd > EXTRA_FWD_ATOL or grads[0][0] > EXTRA_GRAD_ATOL \
+            or grads[0][1] > EXTRA_GRAD_REL:
+        bad.append("hsv_round_trip")
+    for name, k in EXTRA_OPS.items():
+        lo, hi = (0.5, 1.5) if name == "whitebalance" else (-0.8, 1.2)
+        p = rng.uniform(lo, hi, (b, k)).astype(np.float32)
+        fwd, grads = card_vs_f64(
+            lambda i, q, name=name: O.mask_blend(O.OP_FNS[name](i, q), i),
+            [img, p], cot)
+        out[name] = {"fwd": fwd, "img_grad": grads[0],
+                     "param_grad_rel": grads[1][2]}
+        if fwd > EXTRA_FWD_ATOL or grads[0][0] > EXTRA_GRAD_ATOL \
+                or grads[0][1] > EXTRA_GRAD_REL \
+                or grads[1][2] > EXTRA_PARAM_RTOL:
+            bad.append(name)
+    log(f"ops_extra: b{b} x {size}², card f32 against CPU f64 in "
+        f"{time.perf_counter() - t0:.2f} s: "
+        + "; ".join(f"{n} fwd {v['fwd']:.2e}, image grad max "
+                    f"{v['img_grad'][0]:.2e} / norm {v['img_grad'][1]:.2e}"
+                    + (f", param grad {v['param_grad_rel']:.2e}"
+                       if "param_grad_rel" in v else "")
+                    for n, v in out.items())
+        + f" (bounds fwd {EXTRA_FWD_ATOL}, image grad {EXTRA_GRAD_ATOL} / "
+        f"{EXTRA_GRAD_REL} of its norm, param grad {EXTRA_PARAM_RTOL}); the "
+        f"round trip's gradient without the "
+        f"{out['hsv_round_trip']['sextant_flips']} of {b * size * size} "
+        f"pixels whose sextant the card's f32 and the CPU's f64 floor to "
+        f"either side (`sextant_flips`, at most {SEXTANT_FLIPS_MAX})")
+    if out["hsv_round_trip"]["sextant_flips"] > SEXTANT_FLIPS_MAX:
+        bad.append("sextant flips")
+    if bad:
+        fail(f"ops_extra: {bad} disagree with the CPU's f64")
+
+    fits = {}
+    for name, im, edited, p, op in reverse_cases():
+        rev, p0 = reverse.rev_ops_dict[op], reverse.get_rev_param0(p, op)
+        t0 = time.perf_counter()
+        card, ok_card = reverse.get_param_naive(edited, im, None, p0, rev,
+                                                device="cuda")
+        card_s = time.perf_counter() - t0
+        cpu, ok_cpu = reverse.get_param_naive(edited, im, None, p0, rev,
+                                              device="cpu")
+        gap = max(abs(a - c) for a, c in zip(card, cpu))
+        fits[name] = {"card": card, "cpu": cpu, "ok": ok_card, "gap": gap,
+                      "card_s": card_s}
+        if ok_card != ok_cpu or gap > REVERSE_PARAM_ATOL:
+            fail(f"ops_extra: the {name} reverse fit on the card ({card}, "
+                 f"{ok_card}) is not the CPU's ({cpu}, {ok_cpu})")
+        if ok_card:
+            got, _ = reverse.get_reverse(torch.from_numpy(im).cuda(),
+                                         torch.from_numpy(edited).cuda(),
+                                         None, p, op)
+            if got != card:
+                fail(f"ops_extra: get_reverse gave {got}, its fit {card}")
+    log("  reverse fits (300 Adam steps, 4 starts), card vs CPU: "
+        + "; ".join(f"{n} {v['card'][0]:.6f} vs {v['cpu'][0]:.6f} "
+                    f"(ok {v['ok']}, gap {v['gap']:.2e}, "
+                    f"{v['card_s']:.2f} s)" for n, v in fits.items())
+        + f" (bound {REVERSE_PARAM_ATOL}, same success flag)")
+
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    src = os.path.join("data_real_h2h", "FiveK", "images", "0017_A.jpg")
+    t0 = time.perf_counter()
+    written = op_sweep.main(["--device", "cuda", "--img", src, "--img_size",
+                             "512", "--out_dir", SWEEP_DIR])
+    sweep_s = time.perf_counter() - t0
+    from t2onet_tpu_torch.data.fivek import load_train_img
+
+    want = op_sweep.sweep(torch.from_numpy(load_train_img(src, 512)[None]))
+    got_rel = [os.path.relpath(p, SWEEP_DIR) for p, _ in written]
+    gap = max(float(np.abs(a - w).max())
+              for (_, a), (_, w) in zip(written, want))
+    on_disk = sorted(os.path.relpath(os.path.join(d, f), SWEEP_DIR)
+                     for d, _, fs in os.walk(SWEEP_DIR) for f in fs)
+    log(f"  op_sweep on the card at 512² ({sweep_s:.2f} s, JPEGs written): "
+        f"{len(written)} images in {len(set(os.path.dirname(r) for r in got_rel))}"
+        f" directories, largest gap to the CPU's arrays {gap:.2e} (bound "
+        f"{SWEEP_ATOL}); launches {dict(chain.LAUNCHES)}")
+    if got_rel != [r for r, _ in want] or on_disk != sorted(got_rel) \
+            or not gap <= SWEEP_ATOL:
+        fail(f"ops_extra: the card's sweep is not the CPU's (files "
+             f"{len(got_rel)} vs {len(want)}, gap {gap})")
+    if any(chain.LAUNCHES.values()):
+        fail(f"ops_extra launched a kernel: {dict(chain.LAUNCHES)}")
+    return {"card_vs_f64": out, "reverse": fits, "sweep_files": len(written),
+            "sweep_gap": gap, "sweep_s": sweep_s}
+
+
+CONVERT_DIR = os.path.join("output", "chip_smoke_convert")
+CONVERT_PAIRS = 8
+CONVERT_IMG_ATOL = 1e-5      # converted vs in-memory: the fold rounds once
+CONVERT_ARGV = ["--data_dir", "data_real_h2h", "--glove_path",
+                FIVEK_GLOVE_NPY]
+
+
+def convert_phase():
+    """33: a full-width ModelConfig() actor's state_dict, its second LSTM
+    biases nonzero, written as a reference model.pth; `python -m
+    t2onet_tpu_torch convert --kind actor`, then `test_fivek` from that
+    run directory on the first 8 FiveK test pairs (B1 5 a pair, nothing
+    else): the programs of the actor in memory on the same inputs, images
+    within CONVERT_IMG_ATOL; `--kind gan` with the reference
+    discriminator (ndf 64, 3 layers, 2 scales): disc/ equal to it."""
+    from t2onet_tpu_torch import __main__ as dispatcher
+    from t2onet_tpu_torch.cli import test_fivek
+    from t2onet_tpu_torch.cli.train_gan import build_disc
+    from t2onet_tpu_torch.models.common import init_torch_defaults
+    from t2onet_tpu_torch.train.checkpoint import StateCheckpointer
+
+    shutil.rmtree(CONVERT_DIR, ignore_errors=True)
+    os.makedirs(CONVERT_DIR)
+    a = test_fivek.eval_parser().parse_args(CONVERT_ARGV)
+    vocab2id, _, w2v = common.build_vocab_only(a)
+    actor, _ = common.build_actor(a, len(vocab2id), w2v)
+    knots_near_one(actor)
+    g = torch.Generator().manual_seed(21)
+    with torch.no_grad():
+        for n, p in actor.named_parameters():
+            if ".rnn.bias_hh_" in n:
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    pth = os.path.join(CONVERT_DIR, "model.pth")
+    torch.save(actor.state_dict(), pth)
+    run = os.path.join(CONVERT_DIR, "run")
+    t0 = time.perf_counter()
+    rc = dispatcher.main(["convert", "--kind", "actor", "--torch_ckpt", pth,
+                          "--run_dir", run] + CONVERT_ARGV)
+    convert_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"convert: the dispatcher returned {rc}")
+
+    records, rollouts = [], []
+    native, episode = test_fivek.test_native_res, test_fivek.eval_episode
+
+    def first_pairs(actor_, ds, *args, **kw):
+        return native(actor_, [ds[i] for i in range(CONVERT_PAIRS)], *args,
+                      records=records, **kw)
+
+    def kept(actor_, batch, fused_exec=False):
+        pred, out = episode(actor_, batch, fused_exec=fused_exec)
+        rollouts.append((batch, pred, out["ops"]))
+        return pred, out
+
+    reset_launches()
+    test_fivek.test_native_res, test_fivek.eval_episode = first_pairs, kept
+    try:
+        t0 = time.perf_counter()
+        res = test_fivek.main(CONVERT_ARGV + ["--run_dir", run,
+                                              "--skip_variance"])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    finally:
+        test_fivek.test_native_res, test_fivek.eval_episode = native, episode
+    launches = dict(chain.LAUNCHES)
+    want = CONVERT_PAIRS * a.decoder_max_len
+    mem = actor.cuda().eval()
+    same, gap = [], 0.0
+    for batch, pred, ops in rollouts:
+        p2, o2 = loop.eval_episode(mem, batch, fused_exec=True)
+        same.append(torch.equal(ops, o2["ops"]))
+        gap = max(gap, float((pred - p2).abs().max()))
+    log(f"convert: reference model.pth (full width, second LSTM biases "
+        f"nonzero) -> run dir in {convert_s:.2f} s; test_fivek on "
+        f"{len(records)} FiveK test pairs in {eval_s:.2f} s, metrics {res}, "
+        f"launches {launches} (want chain {want}); against the actor in "
+        f"memory: programs equal {same}, largest image gap {gap:.2e} "
+        f"(bound {CONVERT_IMG_ATOL})")
+    if len(records) != CONVERT_PAIRS or launches["chain"] != want or any(
+            v for k, v in launches.items() if k != "chain"):
+        fail(f"convert: test_fivek rolled out {len(records)} pairs with "
+             f"launches {launches}, want {CONVERT_PAIRS} pairs and chain "
+             f"{want} alone")
+    if not all(same) or not gap <= CONVERT_IMG_ATOL:
+        fail("convert: the converted run's rollouts are not the actor's")
+
+    ns = types.SimpleNamespace(n_layers=a.n_layers,
+                               hidden_size=a.hidden_size, n_layers_D=3,
+                               num_D=2, manual_seed=5)
+    bundle = build_disc(ns, "cpu")
+    init_torch_defaults(bundle, torch.Generator().manual_seed(22))
+    gan_sd = {f"actor.{k}": v.cpu() for k, v in actor.state_dict().items()}
+    gan_sd.update(bundle.state_dict())
+    gpth = os.path.join(CONVERT_DIR, "gan_model.pth")
+    torch.save(gan_sd, gpth)
+    rc = dispatcher.main(["convert", "--kind", "gan", "--torch_ckpt", gpth,
+                          "--run_dir", run] + CONVERT_ARGV)
+    ckpt = os.path.join(run, "seq2seqGAN_model")
+    disc = StateCheckpointer(os.path.join(ckpt, "disc")).restore("best")
+    disc_equal = all(torch.equal(disc[k].cpu(), v)
+                     for k, v in bundle.state_dict().items())
+    g_model = torch.load(os.path.join(ckpt, "checkpoint_best.pt"),
+                         map_location="cpu", weights_only=True)["model"]
+    l_model = torch.load(os.path.join(run, "seq2seqL1_model",
+                                      "checkpoint_best.pt"),
+                         map_location="cpu", weights_only=True)["model"]
+    actor_equal = all(torch.equal(g_model[k], v) for k, v in l_model.items())
+    log(f"  --kind gan (D ndf 64, 3 layers, 2 scales): disc/ equal to the "
+        f"reference discriminator {disc_equal}, actor equal to the L1 "
+        f"conversion's {actor_equal}")
+    if rc != 0 or not disc_equal or not actor_equal:
+        fail("convert: the GAN conversion is not the reference's weights")
+    return {"launches": launches, "pairs": len(records), "metrics": res,
+            "img_gap": gap, "convert_s": convert_s, "eval_s": eval_s}
+
+
+SUPERVISOR_DIR = os.path.join("output", "chip_smoke_supervisor")
+SUPERVISOR_WRAPPER = '''"""train_fivek that exits 1 once, right after its checkpoint at
+iteration 4; a run that finishes writes its launch counts."""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+from t2onet_tpu_torch.cli import train_fivek
+from t2onet_tpu_torch.ops import chain
+from t2onet_tpu_torch.train import checkpoint
+
+marker, counts = sys.argv[1], sys.argv[2]
+save = checkpoint.CheckpointManager.save
+
+
+def crash_once(self, state, itr, *args, **kw):
+    best = save(self, state, itr, *args, **kw)
+    if itr == 4 and not os.path.exists(marker):
+        open(marker, "w").write("exited after the checkpoint at 4")
+        sys.exit(1)
+    return best
+
+
+checkpoint.CheckpointManager.save = crash_once
+state = train_fivek.main(sys.argv[3:])
+with open(counts, "w") as f:
+    json.dump({"launches": dict(chain.LAUNCHES), "step": state.step,
+               "argv": sys.argv[3:]}, f)
+'''
+
+
+def supervisor_phase():
+    """34: `cli.train_supervisor` around a full-width `train_fivek
+    --synthetic` (b64 x 128², 8 iterations, a checkpoint every 4) that a
+    wrapper makes exit 1 right after its checkpoint at iteration 4: the
+    restart resumes with --resume, keeps its numbering and finishes
+    iteration 8; B1 and B3 counted in the resumed run."""
+    shutil.rmtree(SUPERVISOR_DIR, ignore_errors=True)
+    os.makedirs(SUPERVISOR_DIR)
+    wrapper = os.path.join(SUPERVISOR_DIR, "crash_once.py")
+    with open(wrapper, "w") as f:
+        f.write(SUPERVISOR_WRAPPER)
+    marker = os.path.join(SUPERVISOR_DIR, "crashed")
+    counts = os.path.join(SUPERVISOR_DIR, "counts.json")
+    run = os.path.join(SUPERVISOR_DIR, "run")
+    argv = [a for a in TRAIN_ARGV if a != TRAIN_RUN_DIR] + [run]
+    argv[argv.index("--checkpoint_every") + 1] = "4"
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "t2onet_tpu_torch.cli.train_supervisor",
+         "--backoff", "0", "--max_restarts", "2", "--", sys.executable,
+         wrapper, marker, counts] + argv,
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(SUPERVISOR_DIR, "supervisor.log"), "w") as f:
+        f.write(p.stdout + p.stderr)
+    launched = [ln for ln in p.stdout.splitlines()
+                if ln.startswith("[supervisor] launching")]
+    if p.returncode != 0 or not os.path.exists(counts):
+        fail(f"supervisor: exit {p.returncode}\n{p.stdout[-3000:]}\n"
+             f"{p.stderr[-3000:]}")
+    with open(counts) as f:
+        done = json.load(f)
+    steps = [s for s, k, _ in logged_losses(os.path.join(run,
+                                                         "metrics.jsonl"))
+             if k != "val_L1"]
+    ckpts = sorted(os.listdir(os.path.join(run, "seq2seqL1_model")))
+    launches = done["launches"]
+    resumed_episodes = sum(1 for i in range(5, 9) if i % 2 == 0)
+    want = {"chain": (resumed_episodes + 1) * 5,
+            "step_bwd": resumed_episodes * 5}
+    log(f"supervisor: {len(launched)} launches in {wall:.2f} s (two "
+        f"processes, each from start-up); the resumed run's argv ends "
+        f"{done['argv'][-2:]}, final step {done['step']}, logged steps "
+        f"{steps}, checkpoints {ckpts}; its launches {launches}, want "
+        f"{want} (iterations 5-8: 2 episode iterations x 5 steps, and 5 "
+        f"chains for the validation batch)")
+    if len(launched) != 2 or done["argv"][-1] != "--resume" \
+            or done["step"] != 8 or steps != sorted(steps) \
+            or "checkpoint_iter00000008.pt" not in ckpts \
+            or "checkpoint_iter00000004.pt" not in ckpts:
+        fail("supervisor: the restart did not resume and finish at 8")
+    if {k: v for k, v in launches.items() if v} != want:
+        fail(f"supervisor: the resumed run launched {launches}, want {want}")
+    return {"launches": {k: launches.get(k, 0) for k in chain.LAUNCHES},
+            "wall_s": wall, "restarts": len(launched) - 1}
+
+
+TP_DIR = os.path.join("output", "chip_smoke_tp")
+
+
+def tp_heads_phase():
+    """35: two gloo ranks on cuda:0 as a (1 x 2) grid (`mesh.make_2d_mesh`,
+    each rank four of the eight heads), one supervised and one fused
+    episode step at full width on phase 29 (b)'s b64 x 128² synthetic
+    batch and noise, the kernels from this process's build: each rank
+    against the same step in one process within phase 9's bounds, B1 5 +
+    B3 5 a rank, each rank's Adam holding moments for its own four heads
+    and the replicated rest; then `python -m t2onet_tpu_torch help`."""
+    from t2onet_tpu_torch.parallel import workers
+
+    cases = [dict(c, full=True) for c in fivek_step_cases(
+        torch.Generator().manual_seed(11))]
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = workers.run_ranks(
+        {"kind": "steps", "device": "cuda:0", "backend": "gloo",
+         "model_par": 2, "cases": cases}, 2, TP_DIR, timeout=600,
+        env={"T2ONET_TORCH_BUILD_DIR": build.BUILD_DIR})
+    wall = time.perf_counter() - t0
+    log(f"tp_heads: 2 gloo ranks on cuda:0 as (1 x 2), 2 steps each, in "
+        f"{wall:.2f} s (two processes, kernels from this process's build)")
+    want_launch = {"supervised": {}, "episode": {"chain": 5, "step_bwd": 5}}
+    out = {}
+    for c in cases:
+        name = c["name"]
+        one = run_one_case(c)
+        rest = [n for n in one["moments"] if not n.startswith("executor.")]
+        key = "loss" if name == "supervised" else "L1_loss"
+        for r, res in enumerate(ranks):
+            got = res[name]
+            own = list(range(4 * r, 4 * r + 4))
+            heads = sorted({OP_NAMES.index(n.split(".")[1][:-3])
+                            for n in got["moments"]
+                            if n.startswith("executor.")})
+            if heads != own or [n for n in got["moments"]
+                                if not n.startswith("executor.")] != rest:
+                fail(f"tp_heads {name}: rank {r}'s Adam holds heads "
+                     f"{heads}, want {own} and the replicated rest")
+            if {k: v for k, v in got["launches"].items() if v} \
+                    != want_launch[name]:
+                fail(f"tp_heads {name}: rank {r} launched "
+                     f"{got['launches']}, want {want_launch[name]}")
+            grads = got["actor"]["grads"]
+            rel, per = dict_grad_gap(grads, {k: one["actor"]["grads"][k]
+                                             for k in grads})
+            stats = max(float((got["actor"]["state_dict"][k]
+                               - one["actor"]["state_dict"][k]).abs().max())
+                        for k in one["actor"]["state_dict"] if "running" in k)
+            dw, dw_clear = weight_gaps(
+                got["actor"], {"grads": {k: one["actor"]["grads"][k]
+                                         for k in grads},
+                               "state_dict": one["actor"]["state_dict"]})
+            lc, lp = got["metrics"][key], one["metrics"][key]
+            log(f"  {name}, rank {r} (heads {own}): loss {lc:.7f} vs "
+                f"{lp:.7f} (one process); gradients {rel:.2e} of their norm, "
+                f"worst tensor's error / bound {per[0][0]:.4f} ({per[0][1]});"
+                f" BN stats {stats:.2e}; gathered weights {dw_clear:.2e} "
+                f"where the gradient stands clear, {dw:.2e} anywhere; "
+                f"launches {got['launches']}")
+            if (not within_phase9(lc, lp, rel, per, stats) or dw > 2e-3
+                    or dw_clear > 1e-6):
+                fail(f"tp_heads {name}: rank {r} disagrees with one process")
+        a, b = (ranks[r][name]["actor"]["state_dict"] for r in (0, 1))
+        heads_equal = all(torch.equal(a[k], b[k]) for k in a
+                          if k.startswith("executor."))
+        replica_gap = max(float((a[k].double() - b[k].double()).abs().max())
+                          for k in a if not k.startswith("executor."))
+        log(f"  {name}: the ranks' gathered heads equal {heads_equal}; the "
+            f"replicated rest {replica_gap:.2e} apart at most")
+        if not heads_equal:
+            fail(f"tp_heads {name}: the gathered heads differ over the ranks")
+        out[name] = {"loss_ranks": ranks[0][name]["metrics"][key],
+                     "loss_one": one["metrics"][key],
+                     "replica_gap": replica_gap,
+                     "launches_per_rank": ranks[0][name]["launches"]}
+    h = subprocess.run([sys.executable, "-m", "t2onet_tpu_torch", "help"],
+                       capture_output=True, text=True, timeout=120)
+    listed = [ln.split()[0] for ln in h.stdout.splitlines()
+              if ln.startswith("  ")]
+    log(f"  python -m t2onet_tpu_torch help: exit {h.returncode}, "
+        f"{len(listed)} commands {listed}")
+    if h.returncode != 0 or len(listed) != 16:
+        fail(f"tp_heads: the dispatcher's help failed: {h.stdout}{h.stderr}")
+    launches = {k: sum(r[c["name"]]["launches"][k] for r in ranks
+                       for c in cases) for k in chain.LAUNCHES}
+    return {"steps": out, "wall_s": wall, "launches": launches,
+            "commands": listed}
+
+
 PHASES = {"4b": eval_chain_phase, "serve_pipeline": serve_pipeline_phase,
           "http": http_phase, "inpaint": inpaint_phase,
           "demo_plan": demo_plan_phase, "gan": gan_phase,
           "gan_plan": gan_plan_phase, "fid": fid_phase,
           "pix2pixhd": pix2pixhd_phase, "dp": dp_phase,
-          "mesh_serve": mesh_serve_phase, "mesh_plan": mesh_plan_phase}
+          "mesh_serve": mesh_serve_phase, "mesh_plan": mesh_plan_phase,
+          "ops_extra": ops_extra_phase, "convert": convert_phase,
+          "supervisor": supervisor_phase, "tp_heads": tp_heads_phase}
 
 
 def run_phases(names):
@@ -4420,6 +4961,10 @@ def main(argv=None):
     dpr = dp_phase()
     msv = mesh_serve_phase()
     mpl = mesh_plan_phase()
+    ox = ops_extra_phase()
+    cv = convert_phase()
+    sup = supervisor_phase()
+    tp = tp_heads_phase()
     # the planner runs no kernel: phases 14-15 checked that every count
     # stayed 0 (pf["launches"], pg["launches"])
     plan = {"plan_fivek": pf["launches"], "plan_gier": pg["launches"]}
@@ -4448,6 +4993,10 @@ def main(argv=None):
         mesh_serve={k: msv["serve_launches"] if k == "chain" else 0
                     for k in chain.LAUNCHES},
         mesh_plan={k: 0 for k in chain.LAUNCHES})
+    # the last slice: the converted run's eval, the supervised trainer's
+    # resumed run, the tensor-parallel steps (both ranks' launches)
+    new.update(convert_eval=cv["launches"], supervisor_train=sup["launches"],
+               tp_heads=tp["launches"])
     chain_by_path = {"serve": serve_launches,
                      "train": train_launches["chain"],
                      "gier_train": gier_launches["chain"],
@@ -4535,7 +5084,8 @@ def main(argv=None):
                                              if k != "bench"},
         "serve_bench": hp["bench"], "inpaint": ip, "demo_plan": dp,
         "gan": gn, "gan_plan": gp, "fid": fd, "pix2pixhd": p2p,
-        "dp": dpr, "mesh_serve": msv, "mesh_plan": mpl}
+        "dp": dpr, "mesh_serve": msv, "mesh_plan": mpl,
+        "ops_extra": ox, "convert": cv, "supervisor": sup, "tp_heads": tp}
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

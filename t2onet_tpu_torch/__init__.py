@@ -18,6 +18,10 @@ the reference; tests hold this package to it.
               files the trainers learn from, by a pixel or a learned
               distance.
 - `evals`   — L1, SSIM, FID (InceptionV3 features) and the gallery.
+- `parallel` — data parallelism, the device mesh, and the (data x
+              model) grid that splits the parameter heads.
+- `cli`     — every entry point; `python -m t2onet_tpu_torch <command>`
+              runs them by JAX's command names.
 
 Importing the package loads no kernel and starts nothing: kernels are
 built at their first launch on a CUDA tensor.

@@ -108,7 +108,7 @@ def gan_step(state: TrainState, gan: GANState, batch, losses,
     src, gt = batch["img_x"], batch["gt_img"]
     pseudo = batch.get("pseudo_real")
     # a rank's share of a global mean over equal row blocks
-    share = 1.0 / mesh.world_size()
+    share = 1.0 / mesh.data_size()
     # the text condition from the encoder's hidden state, held fixed
     with torch.no_grad():
         enc_h = actor.lang_encoder(batch["x"])[1][0]

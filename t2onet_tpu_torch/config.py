@@ -8,9 +8,11 @@ JAX package.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Tuple
 
 FIVEK_VOCAB_SIZE = 918          # FiveK session-1 request vocabulary
+GIER_VOCAB_SIZE = 3046          # GIER session-3 request vocabulary
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,3 +100,17 @@ class Config:
     dataset: str = "FiveK"
     session: int = 1
     vocab_size: int = FIVEK_VOCAB_SIZE
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+
+def fivek_config(**overrides) -> Config:
+    """The FiveK session-1 configuration, with `overrides` replaced."""
+    return dataclasses.replace(Config(), **overrides)
+
+
+def gier_config(**overrides) -> Config:
+    """The GIER session-3 configuration (3,046 request tokens)."""
+    base = Config(dataset="GIER", session=3, vocab_size=GIER_VOCAB_SIZE)
+    return dataclasses.replace(base, **overrides)

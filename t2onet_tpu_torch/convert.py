@@ -1,8 +1,9 @@
 """Weights bridge: a JAX `t2onet_tpu` actor's variables -> a port `Actor`
 (and a JAX `InpaintNet`'s -> the port's, `load_jax_inpaint`; a JAX
 `DiscBundle`'s -> the port's discriminator and condition encoder,
-`load_jax_disc`; a reference seq2seqGAN `model.pth` by its own names,
-`load_torch_gan_checkpoint`).
+`load_jax_disc`; a reference seq2seqL1 or seq2seqGAN `model.pth` by its
+own names, `load_torch_checkpoint` and `load_torch_gan_checkpoint`; a
+JAX optax Adam's moments, `jax_adam_to_torch`).
 
 The inverse of `t2onet_tpu/convert/torch_checkpoint.py:convert_state_dict`
 (which reads the reference checkpoint's names, and so the port's):
@@ -248,6 +249,22 @@ def fold_lstm_biases(sd: Dict) -> Dict:
     return sd
 
 
+def read_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A `model.pth` state_dict on the host in f32, without the BatchNorm
+    counters."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.float() for k, v in sd.items()
+            if not k.endswith("num_batches_tracked")}
+
+
+@torch.no_grad()
+def load_torch_checkpoint(path: str, actor) -> None:
+    """Load a reference seq2seqL1 model.pth (the actor's state_dict, the
+    port's names) into `actor`, in place: the LSTM biases folded
+    (`fold_lstm_biases`), every tensor covered, every shape fitting."""
+    _copy_into(actor, fold_lstm_biases(read_torch_state_dict(path)), "actor")
+
+
 @torch.no_grad()
 def load_torch_gan_checkpoint(path: str, actor=None, bundle=None) -> None:
     """Load a reference seq2seqGAN model.pth (the whole-model state_dict
@@ -255,9 +272,7 @@ def load_torch_gan_checkpoint(path: str, actor=None, bundle=None) -> None:
     (the LSTM biases folded, `fold_lstm_biases`) and `netD.*` and
     `cond_encoder.*` into `bundle`. Either may be None; what it names
     must be covered whole."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = {k: v.float() for k, v in sd.items()
-          if not k.endswith("num_batches_tracked")}
+    sd = read_torch_state_dict(path)
     if actor is not None:
         part = {k[len("actor."):]: v for k, v in sd.items()
                 if k.startswith("actor.")}
@@ -266,3 +281,22 @@ def load_torch_gan_checkpoint(path: str, actor=None, bundle=None) -> None:
         part = {k: v for k, v in sd.items()
                 if k.startswith(("netD.", "cond_encoder."))}
         _copy_into(bundle, part, "discriminator")
+
+
+def jax_adam_to_torch(opt, named_params, count: int, mu: Dict, nu: Dict,
+                      batch_stats: Dict, cfg) -> Dict:
+    """A torch Adam state_dict for `opt` (over `named_params`, [(name,
+    parameter)] in the optimizer's order) from an optax Adam's step count
+    and its first and second moments, trees shaped as the actor's params
+    (`jax_variables_to_state_dict` maps them as it maps the weights)."""
+    geometry = (cfg.n_layers, blocks_per_stage(cfg.resnet_depth),
+                cfg.discrete_step if cfg.discrete_param else 0)
+    m = jax_variables_to_state_dict(mu, batch_stats, *geometry)
+    v = jax_variables_to_state_dict(nu, batch_stats, *geometry)
+    sd = opt.state_dict()
+    sd["state"] = {i: {"step": torch.tensor(float(count)),
+                       "exp_avg": torch.from_numpy(m[name]).reshape(p.shape),
+                       "exp_avg_sq": torch.from_numpy(v[name]).reshape(
+                           p.shape)}
+                   for i, (name, p) in enumerate(named_params)}
+    return sd

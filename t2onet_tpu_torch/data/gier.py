@@ -7,6 +7,7 @@ Layout under `data_dir` (the GIER directory):
   splits/{phase}_sess_{s}.json               annotation list
   splits/{phase}_{mode file}_sess_{s}.json   data-mode id lists
   images/ masks/                             JPEGs, RLE mask files
+  features/                                  per-image .h5 mask features
 Planner actions: {act_dir}/{image id}/acts.json and edit{k}.jpg.
 """
 
@@ -54,6 +55,7 @@ class GIER:
         self.phase = phase
         self.img_dir = os.path.join(data_dir, "images")
         self.mask_dir = os.path.join(data_dir, "masks")
+        self.feature_dir = os.path.join(data_dir, "features")
         self.split_dir = os.path.join(data_dir, "splits")
         self.train_img_size = train_img_size
         self.is_load_mask = is_load_mask
@@ -93,26 +95,69 @@ class GIER:
         return [op for op in op_dict if op in self.op_vocab2id]
 
     def _create_index(self):
+        """The COCO-style maps: image ids, requests and their pairs, each
+        pair's kept ops (op ids), and each (request, op) combination."""
         imgs = []
         for d in self.op_data:
             imgs += [d["input"], d["output"]]
         self.getImgId = {name: i for i, name in enumerate(np.unique(imgs))}
-        self.getReq, self.getReqIdx, self.ReqId2PairId = {}, {}, {}
-        req_id = 0
+        (self.getReq, self.getReqIdx, self.getOp, self.getOpReq) = (
+            {}, {}, {}, {})
+        (self.ReqId2PairId, self.ImgId2PairId, self.OpId2PairId,
+         self.OpReqId2ReqId, self.OpReqId2OpId) = {}, {}, {}, {}, {}
+        req_id = op_req_id = op_id = 0
         for pair_i, d in enumerate(self.op_data):
+            op_start = op_id
+            ops = self.filter_operator(d["operator"])
+            for op in ops:
+                self.OpId2PairId[op_id] = pair_i
+                self.getOp[op_id] = op
+                op_id += 1
             for req in d["expert_summary"] + d["amateur_summary"]:
                 self.getReq[req_id] = req
                 self.getReqIdx[req_id] = self.req2idx(req)
                 self.ReqId2PairId[req_id] = pair_i
+                self.ImgId2PairId[self.getImgId[d["input"]]] = pair_i
+                self.ImgId2PairId[self.getImgId[d["output"]]] = pair_i
+                for op_i, op in enumerate(ops):
+                    self.OpReqId2ReqId[op_req_id] = req_id
+                    self.OpReqId2OpId[op_req_id] = op_start + op_i
+                    self.getOpReq[op_req_id] = op
+                    op_req_id += 1
                 req_id += 1
         self.PairId2ReqId: Dict[int, List[int]] = {}
         for rid, pid in self.ReqId2PairId.items():
             self.PairId2ReqId.setdefault(pid, []).append(rid)
 
+    def OpId2OpIdx(self, op_id: int) -> int:
+        """An op id's operator-vocabulary id."""
+        return self.op_vocab2id[self.getOp[op_id]]
+
     # ---- masks ----------------------------------------------------------
     def get_mask(self, pair_id: int, operator: str):
         md = self.op_data[pair_id]["operator"][operator]
         return md["local"], md["ids"]
+
+    def load_mask(self, pair_id: int) -> List[np.ndarray]:
+        """Every instance mask of the pair's input, RLE-decoded: (h, w)
+        uint8 each."""
+        name = self.op_data[pair_id]["input"].split(".")[0] + "_mask.json"
+        with open(os.path.join(self.mask_dir, name)) as f:
+            data = json.load(f)
+        return [rle_decode(r) for r in data]
+
+    def load_mask_feature(self, pair_id: int):
+        """(pan_feat, rcnn_feat, cls_inds, inst_inds, inst_ids) of the
+        pair's input from features/{stem}.h5. Needs h5py, imported here."""
+        try:
+            import h5py
+        except ImportError as e:
+            raise ImportError("GIER.load_mask_feature reads .h5 files and "
+                              "needs h5py, which this host lacks") from e
+        name = self.op_data[pair_id]["input"].split(".")[0] + ".h5"
+        with h5py.File(os.path.join(self.feature_dir, name), "r") as f:
+            return (f["pan_feat"][:], f["rcnn_feat"][:], f["cls_inds"][:],
+                    f["inst_inds"][:], f["inst_ids"][:])
 
     def resize_and_union_mask(self, mask_ids, name, size) -> np.ndarray:
         """Union of the selected RLE masks of '{name}_{name}_mask.json',
@@ -242,6 +287,19 @@ class GIERDataset:
         dic["request_idx"] = np.asarray(_pad_start_end(dic["request_idx"]),
                                         np.int64)
         return dic
+
+    @staticmethod
+    def collate(batch: List[Dict]) -> Dict:
+        """Items -> one dict: arrays stacked, dicts, lists and strings
+        listed."""
+        blob = {}
+        for key in batch[0]:
+            v = batch[0][key]
+            if isinstance(v, (dict, list, str)):
+                blob[key] = [b[key] for b in batch]
+            else:
+                blob[key] = np.stack([np.asarray(b[key]) for b in batch])
+        return blob
 
     def batches(self, batch_size: int, steps: int, shuffle: bool = True,
                 seed: int = 0, sequential: bool = False):

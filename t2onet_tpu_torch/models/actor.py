@@ -96,7 +96,15 @@ class ParamHeads(nn.Module):
     """The eight per-op parameter heads (fc1 -> LeakyReLU -> fc2), run as
     two batched products over weights stacked and zero-padded to 24
     outputs, as `t2onet_tpu.ops.bank.raw_head_features` runs them. fc2
-    has `fc2_widths(discrete_step)` outputs."""
+    has `fc2_widths(discrete_step)` outputs.
+
+    Under a (data x model) grid (`parallel.mesh.make_2d_mesh`) a training
+    forward computes only this rank's block of heads (`mesh.owned_heads`)
+    and gathers the features of the others (`mesh.gather_heads`); the
+    context's gradient is summed over the model group
+    (`mesh.heads_input`). The other heads' weights go stale here until
+    `TrainState.gather` brings them. An eval-mode forward computes every head locally, so it needs
+    them gathered first."""
 
     def __init__(self, opcfg: OperatorConfig, ctx_dim: int = 512,
                  fc_dim: int = 512, discrete_step: int = 0):
@@ -105,8 +113,9 @@ class ParamHeads(nn.Module):
         for name, k in zip(OP_NAMES, fc2_widths(discrete_step)):
             setattr(self, f"{name}_op", _OpHead(ctx_dim, fc_dim, k))
 
-    def stacked(self):
-        heads = [getattr(self, f"{name}_op") for name in OP_NAMES]
+    def stacked(self, ops=range(len(OP_NAMES))):
+        """(w1, b1, w2, b2) of the heads `ops`, stacked in that order."""
+        heads = [getattr(self, f"{OP_NAMES[i]}_op") for i in ops]
         w1 = torch.stack([h.fc1.weight.t() for h in heads])
         b1 = torch.stack([h.fc1.bias for h in heads])
         w2 = torch.stack([F.pad(h.fc2.weight.t(),
@@ -121,7 +130,11 @@ class ParamHeads(nn.Module):
         """context (B, ctx) -> squashed per-op params (B, 8, 24), and with
         `with_raw` the raw features (B, 8, 24) too (the discrete mode's bin
         logits)."""
-        raw = bank.raw_head_features(*self.stacked(), context)
+        if self.training and mesh.model_size() > 1:
+            raw = mesh.gather_heads(bank.raw_head_features(
+                *self.stacked(mesh.owned_heads()), mesh.heads_input(context)))
+        else:
+            raw = bank.raw_head_features(*self.stacked(), context)
         squashed = bank.squash_params(raw, self.opcfg)
         return (squashed, raw) if with_raw else squashed
 

@@ -82,6 +82,17 @@ class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
     pass
 
 
+def checked_device(device) -> torch.device:
+    """`device` as a torch.device for a loader: the card by default, and
+    CUDA where PyTorch finds no card raises rather than load on the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: PyTorch finds no CUDA card "
+                           f"here; pass device='cpu' to load on the CPU")
+    return device
+
+
 def freeze_second_lstm_bias(lstm: nn.LSTM):
     """The JAX package's LSTM has one bias; torch's has b_ih and b_hh. Keep
     b_ih as that bias and hold b_hh at zero and out of training, so that

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from t2onet_tpu_torch.models.common import checked_device
+
 N_RES_BLOCKS = 8
 
 
@@ -136,9 +138,11 @@ def edgeconnect_state_dict(sd: Dict) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_generator(sd: Dict, kind: str, device="cpu") -> _Generator:
+def load_generator(sd: Dict, kind: str, device="cuda") -> _Generator:
     """An `EdgeGenerator` ('edge') or `InpaintGenerator` ('inpaint') from a
-    checkpoint's state_dict, on `device`, in eval mode."""
+    checkpoint's state_dict, on `device` (the card by default; raises where
+    PyTorch finds none), in eval mode."""
+    device = checked_device(device)
     net = {"edge": EdgeGenerator, "inpaint": InpaintGenerator}[kind]()
     net.load_state_dict(edgeconnect_state_dict(sd))
     return net.to(device).eval()
@@ -228,9 +232,11 @@ def make_edgeconnect_inpaint_fn(edge_net: EdgeGenerator,
 
 
 def load_edgeconnect(edge_path: str, inpaint_path: str, mask, sigma=2.0,
-                     device="cpu"):
+                     device="cuda"):
     """Load EdgeConnect's `EdgeModel_gen.pth` and
-    `InpaintingModel_gen.pth` and return the bank-ready inpaint_fn."""
+    `InpaintingModel_gen.pth` onto `device` (the card by default; raises
+    where PyTorch finds none) and return the bank-ready inpaint_fn."""
+    device = checked_device(device)
     esd = torch.load(edge_path, map_location="cpu", weights_only=True)
     isd = torch.load(inpaint_path, map_location="cpu", weights_only=True)
     return make_edgeconnect_inpaint_fn(

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from t2onet_tpu_torch.models.common import checked_device
 from t2onet_tpu_torch.ops.color import abs_
 
 
@@ -160,9 +161,10 @@ def save_inpaint(path: str, net: InpaintNet) -> None:
                    "dilations": list(net.dilations)}, f)
 
 
-def load_inpaint(path: str, device="cpu") -> InpaintNet:
-    """The InpaintNet saved by :func:`save_inpaint`, on `device`, in eval
-    mode."""
+def load_inpaint(path: str, device="cuda") -> InpaintNet:
+    """The InpaintNet saved by :func:`save_inpaint`, on `device` (the card
+    by default; raises where PyTorch finds none), in eval mode."""
+    device = checked_device(device)
     with open(os.path.join(path, "arch.json")) as f:
         arch = json.load(f)
     net = InpaintNet(features=arch["features"],

@@ -1,15 +1,18 @@
-"""The executor's eight editing operators as functions on tensors
-(counterpart of `t2onet_tpu.ops.operators`, same formulas and order of
-arithmetic). Each maps (img (B,3,H,W), param (B,k)) -> img; masking and
-the final clamp are `mask_blend`."""
+"""The executor's eight editing operators and the five extras (exposure,
+bnw, blur, hue, white balance) as functions on tensors (counterpart of
+`t2onet_tpu.ops.operators`, same formulas and order of arithmetic). Each
+maps (img (B,3,H,W), param (B,k)) -> img; masking and the final clamp
+are `mask_blend`. `OP_FNS` names all thirteen."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from t2onet_tpu_torch.ops.color import clip, lerp, rgb2lum
+from t2onet_tpu_torch.ops.color import (clip, hsv_to_rgb, lerp, rgb2lum,
+                                     rgb_to_hsv)
 
 OP_NAMES = (
     "brightness",
@@ -85,29 +88,37 @@ def color_curve(img, param):
     return _piecewise_curve(img, param.reshape(-1, 3, CURVE_STEPS))
 
 
-def _laplacian(img):
-    """Zero-padded 4-neighbour Laplacian, summed in the JAX package's tap
-    order (up, left, centre, right, down)."""
-    h, w = img.shape[2], img.shape[3]
-    up = torch.roll(img, shifts=(1, 0), dims=(2, 3))
-    up[:, :, 0, :] = 0.0
-    left = torch.roll(img, shifts=(0, 1), dims=(2, 3))
-    left[:, :, :, 0] = 0.0
-    right = torch.roll(img, shifts=(0, -1), dims=(2, 3))
-    right[:, :, :, w - 1] = 0.0
-    down = torch.roll(img, shifts=(-1, 0), dims=(2, 3))
-    down[:, :, h - 1, :] = 0.0
+# host-side taps: each is a Python float in the sum
+_LAPLACIAN = np.array(
+    [[0.0, -1.0, 0.0], [-1.0, 4.0, -1.0], [0.0, -1.0, 0.0]], dtype=np.float32)
+
+
+def _conv3x3_same(img, kernel):
+    """Depthwise zero-padded 3x3 'same' convolution as shifted adds, in
+    the JAX package's tap order (dy, then dx, zero taps skipped). kernel:
+    a numpy (3, 3)."""
     out = torch.zeros_like(img)
-    out = out + -1.0 * up
-    out = out + -1.0 * left
-    out = out + 4.0 * img
-    out = out + -1.0 * right
-    return out + -1.0 * down
+    for dy in range(3):
+        for dx in range(3):
+            w = float(kernel[dy, dx])
+            if w == 0.0:
+                continue
+            shifted = torch.roll(img, shifts=(1 - dy, 1 - dx), dims=(2, 3))
+            if dy == 0:
+                shifted[:, :, 0, :] = 0.0
+            elif dy == 2:
+                shifted[:, :, -1, :] = 0.0
+            if dx == 0:
+                shifted[:, :, :, 0] = 0.0
+            elif dx == 2:
+                shifted[:, :, :, -1] = 0.0
+            out = out + w * shifted
+    return out
 
 
 def sharpness(img, param):
     """img + p * Laplacian(img)."""
-    return img + _s(param) * _laplacian(img)
+    return img + _s(param) * _conv3x3_same(img, _LAPLACIAN)
 
 
 def white(img, param):
@@ -123,9 +134,63 @@ def inpaint(img, param, inpaint_fn=None):
     return img
 
 
-_OP_FNS = {"brightness": brightness, "contrast": contrast,
-           "saturation": saturation, "color": color_curve, "tone": tone_curve,
-           "sharpness": sharpness, "white": white}
+# ---------------------------------------------------------------------------
+# the extras (the reverse fits, the sweeps)
+# ---------------------------------------------------------------------------
+
+def exposure(img, param):
+    """img * 2^p, as exp(p log 2) (exp2 differs in the last ulp)."""
+    return img * torch.exp(_s(param) * torch.log(img.new_tensor(2.0)))
+
+
+def bnw(img, param):
+    """Desaturate toward luminance."""
+    return lerp(img, rgb2lum(img), _s(param))
+
+
+def _gauss3x3_sigma2():
+    """The normalised 3x3 Gaussian of sigma 2, built in f32 numpy."""
+    coords = np.arange(3, dtype=np.float32)
+    g = np.exp(-((coords - 1.0) ** 2) / (2.0 * 4.0))
+    k = np.outer(g, g)
+    return k / k.sum()
+
+
+_GAUSS3 = _gauss3x3_sigma2()
+
+
+def blur(img, param):
+    """lerp(img, gauss3x3_sigma2(img), p)."""
+    return lerp(img, _conv3x3_same(img, _GAUSS3), _s(param))
+
+
+def hue(img, param):
+    """Replace the hue with p (h in [0, 1))."""
+    _, s, v = rgb_to_hsv(img)
+    return hsv_to_rgb(_s(param).expand_as(s), s, v)
+
+
+def white_balance(img, param):
+    """Per-channel gains; param (B, 3)."""
+    return img * param[:, :, None, None]
+
+
+# name -> fn, for the reverse fits, the sweeps and the planner
+OP_FNS = {
+    "brightness": brightness,
+    "contrast": contrast,
+    "saturation": saturation,
+    "color": color_curve,
+    "inpaint": inpaint,
+    "tone": tone_curve,
+    "sharpness": sharpness,
+    "white": white,
+    "exposure": exposure,
+    "bnw": bnw,
+    "blur": blur,
+    "hue": hue,
+    "whitebalance": white_balance,
+}
 
 
 def apply_op_by_index(img, op_index: int, param, mask=None,
@@ -138,4 +203,4 @@ def apply_op_by_index(img, op_index: int, param, mask=None,
     name = OP_NAMES[op_index]
     if name == "inpaint":
         return mask_blend(inpaint(img, param, inpaint_fn), img, mask)
-    return mask_blend(_OP_FNS[name](img, param), img, mask)
+    return mask_blend(OP_FNS[name](img, param), img, mask)

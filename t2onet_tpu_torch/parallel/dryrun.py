@@ -3,8 +3,11 @@
 at tiny widths, each over n devices.
 
 - The data-parallel supervised and episode steps and the GAN step: n
-  rank processes over gloo on the CPU (`workers.run_ranks`), each on
-  its rows of one global batch.
+  rank processes over gloo on the CPU (`workers.run_ranks`), laid out as
+  JAX's dry run lays its mesh: (n/2 x 2) where n is even and at least 4,
+  each model group splitting the parameter heads
+  (`mesh.make_2d_mesh`), else (n x 1); each data group's ranks on their
+  rows of one global batch of 2 rows per data rank.
 - The planner's lockstep batch over a mesh of n CPU entries
   (`batch_beam_search(mesh=)`).
 - One serving micro-batch over the same mesh (`ServingEngine(mesh=)`).
@@ -12,6 +15,7 @@ at tiny widths, each over n devices.
 It prints one `dryrun_multichip ok: ...` line.
 
     python -m t2onet_tpu_torch.parallel.dryrun 2
+    python -m t2onet_tpu_torch.parallel.dryrun 4
 """
 
 from __future__ import annotations
@@ -96,18 +100,22 @@ def dryrun_multichip(n_devices: int, job_dir=None) -> dict:
     def log(msg):
         print(f"[dryrun +{time.time() - t0:6.1f}s] {msg}", flush=True)
 
-    batch_size = 2 * n_devices
+    model_par = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+    data_par = n_devices // model_par
+    batch_size = 2 * data_par
     with tempfile.TemporaryDirectory() as tmp:
         ranks = run_ranks({"kind": "dryrun", "device": "cpu",
-                           "batch": batch_size}, n_devices,
-                          job_dir or os.path.join(tmp, "ranks"))
+                           "batch": batch_size, "model_par": model_par},
+                          n_devices, job_dir or os.path.join(tmp, "ranks"))
     r0 = ranks[0]
     for key in ("sup_loss", "epi_loss", "gan_G", "gan_D"):
         vals = [r[key] for r in ranks]
         if not np.isfinite(vals).all() or len(set(vals)) != 1:
             raise RuntimeError(f"dryrun: {key} differs over the ranks or "
                                f"is not finite: {vals}")
-    log(f"data-parallel steps ok over {n_devices} ranks: "
+    layout = (f"{n_devices}" if model_par == 1
+              else f"{data_par}x{model_par}")
+    log(f"data-parallel steps ok over ({layout}) ranks: "
         f"sup {r0['sup_loss']:.4f} epi {r0['epi_loss']:.4f} "
         f"GAN G {r0['gan_G']:.4f} D {r0['gan_D']:.4f}")
 
@@ -137,11 +145,11 @@ def dryrun_multichip(n_devices: int, job_dir=None) -> dict:
         raise RuntimeError("dryrun: the serving micro-batch failed")
     log(f"serving micro-batch ok: {len(results)} reqs, "
         f"{len(results[0].ops)} ops on req 0")
-    out = {"mesh": n_devices, "sup_loss": r0["sup_loss"],
+    out = {"mesh": n_devices, "model_par": model_par, "sup_loss": r0["sup_loss"],
            "epi_loss": r0["epi_loss"], "plan_dist": float(np.mean(dists)),
            "gan_G": r0["gan_G"], "gan_D": r0["gan_D"],
            "serve_reqs": len(results)}
-    print(f"dryrun_multichip ok: mesh=({n_devices}) "
+    print(f"dryrun_multichip ok: mesh=({layout}) "
           f"sup_loss={out['sup_loss']:.4f} epi_loss={out['epi_loss']:.4f} "
           f"plan_dist={out['plan_dist']:.4f} gan_G={out['gan_G']:.4f} "
           f"gan_D={out['gan_D']:.4f} serve_reqs={out['serve_reqs']}",

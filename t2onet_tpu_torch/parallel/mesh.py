@@ -20,6 +20,18 @@ batch. The port splits that into two forms:
   step at world size W is the step of world size 1 up to the order of
   summation. At world size 1, with a group of one rank or with none,
   nothing is reduced and every step is exactly the one-process step.
+- **A (data x model) grid** (`make_2d_mesh`, JAX's 2-D mesh) carves the
+  group into data groups and model groups: rank r sits at (r //
+  model_par, r % model_par). Each model group shares one block of rows
+  and splits the eight parameter heads (`owned_heads`), computing its
+  block of them (the input's gradient summed over the model group,
+  `heads_input`) and gathering the features (`gather_heads`); the data
+  group is what every reduction above runs over. Each rank's Adam holds
+  moments for the heads it owns only: JAX's `state_shardings` and
+  `shard_state` put the heads and their moments on the model axis, and
+  here `train.loop.TrainState` builds its Adam over `trainable(actor)`,
+  which under a grid leaves the other ranks' heads out. The grid is
+  process-wide, as the process group it divides.
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
+N_HEADS = 8                 # the parameter heads a model group splits
 JOIN_TIMEOUT_S = 60.0
 
 
@@ -157,6 +171,8 @@ def launched_by_torchrun() -> bool:
 
 
 def close_data_parallel():
+    global _GRID
+    _GRID = None
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -173,9 +189,164 @@ def rank() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the (data x model) grid
+# ---------------------------------------------------------------------------
+
+class Grid:
+    """The (data x model) layout of the group's ranks: this rank's place
+    and its two groups (None without a process group)."""
+
+    def __init__(self, data_par, model_par, data_rank, model_rank,
+                 data_group, model_group, model_ranks):
+        self.data_par, self.model_par = data_par, model_par
+        self.data_rank, self.model_rank = data_rank, model_rank
+        self.data_group, self.model_group = data_group, model_group
+        self.model_ranks = model_ranks      # world ranks, in model order
+
+    def __repr__(self):
+        return (f"Grid(({self.data_par}x{self.model_par}), at "
+                f"({self.data_rank}, {self.model_rank}))")
+
+
+_GRID: Optional[Grid] = None
+
+
+def make_2d_mesh(model_par: int = 2) -> Grid:
+    """Lay the joined group out as (world / model_par) x model_par (the
+    counterpart of JAX's `make_2d_mesh`): batch rows over `data`, the
+    eight parameter heads over `model`. Every rank calls it, since each
+    creates every group. model_par must divide both 8 and the world."""
+    global _GRID
+    w = world_size()
+    if N_HEADS % model_par:
+        raise ValueError(f"{N_HEADS} op heads not divisible by "
+                         f"model_par={model_par}")
+    if w % model_par:
+        raise ValueError(f"{w} devices not divisible by "
+                         f"model_par={model_par}")
+    r, dp = rank(), w // model_par
+    data_group = model_group = None
+    model_ranks = [r]
+    if dist.is_available() and dist.is_initialized():
+        # torch.distributed wants every rank to create every group, in
+        # one order
+        for j in range(model_par):
+            ranks = [i * model_par + j for i in range(dp)]
+            group = dist.new_group(ranks)
+            if r in ranks:
+                data_group = group
+        for i in range(dp):
+            ranks = list(range(i * model_par, (i + 1) * model_par))
+            group = dist.new_group(ranks)
+            if r in ranks:
+                model_group, model_ranks = group, ranks
+    _GRID = Grid(dp, model_par, r // model_par, r % model_par, data_group,
+                 model_group, model_ranks)
+    return _GRID
+
+
+def data_size() -> int:
+    """The ranks of this rank's data group: the ways the batch is split."""
+    return _GRID.data_par if _GRID is not None else world_size()
+
+
+def data_rank() -> int:
+    return _GRID.data_rank if _GRID is not None else rank()
+
+
+def _data_group():
+    return _GRID.data_group if _GRID is not None else None
+
+
+def model_size() -> int:
+    """The ranks that split the heads with this one (1 without a grid)."""
+    return _GRID.model_par if _GRID is not None else 1
+
+
+def model_rank() -> int:
+    return _GRID.model_rank if _GRID is not None else 0
+
+
+def owned_heads(n: int = N_HEADS) -> range:
+    """The heads this rank computes and steps: its model rank's block of
+    n / model_size() (all n without a grid)."""
+    k = n // model_size()
+    return range(model_rank() * k, (model_rank() + 1) * k)
+
+
+def head_owner(i: int, n: int = N_HEADS) -> int:
+    """The world rank, in this rank's model group, that owns head i."""
+    if _GRID is None:
+        return rank()
+    return _GRID.model_ranks[i // (n // model_size())]
+
+
+class _GatherHeads(torch.autograd.Function):
+    """(B, k, P) features of this rank's block of heads -> (B, n, P) of
+    every block, in model order. gloo moves CUDA tensors by broadcast and
+    all-reduce alone, so the blocks meet in one all-reduce of a tensor
+    that is zero outside each rank's block. The backward takes this
+    rank's block of the gradient: the loss is the same on every rank of
+    the model group, so nothing is summed there."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        k = t.shape[1]
+        lo = model_rank() * k
+        full = t.new_zeros((t.shape[0], n) + tuple(t.shape[2:]))
+        full[:, lo:lo + k] = t
+        dist.all_reduce(full, group=_GRID.model_group)
+        ctx.block = (lo, k)
+        return full
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo, k = ctx.block
+        return grad[:, lo:lo + k].contiguous(), None
+
+
+def gather_heads(t: torch.Tensor, n: int = N_HEADS) -> torch.Tensor:
+    """Differentiable gather of the model group's head blocks along dim 1
+    (`t` itself without a model group)."""
+    if model_size() == 1:
+        return t
+    return _GatherHeads.apply(t, n)
+
+
+class _HeadsInput(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the model
+    group, since each rank's block of heads adds its share of it."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=_GRID.model_group)
+        return grad
+
+
+def heads_input(t: torch.Tensor) -> torch.Tensor:
+    """The heads' input under a model group: the same values, with its
+    gradient summed over the group in the backward (`t` itself without a
+    model group)."""
+    if model_size() == 1:
+        return t
+    return _HeadsInput.apply(t)
+
+
+def broadcast_from(t: torch.Tensor, src: int):
+    """Broadcast `t` in place from world rank `src` over this rank's
+    model group."""
+    dist.broadcast(t, src=src, group=_GRID.model_group)
+
+
 def active() -> bool:
-    """A group of more than one rank: reductions cross ranks."""
-    return world_size() > 1
+    """A data group of more than one rank: reductions cross ranks."""
+    return data_size() > 1
 
 
 def barrier():
@@ -185,28 +356,29 @@ def barrier():
 
 def rows_of(batch, n_global: Optional[int] = None):
     """This rank's contiguous rows of a global batch (a numpy array,
-    tensor or dict of them; other values pass as they are). The global
-    batch must divide evenly over the ranks."""
+    tensor or dict of them; other values pass as they are): its data
+    rank's block. The global batch must divide evenly over the data
+    group."""
     if isinstance(batch, dict):
         return {k: rows_of(v, n_global) for k, v in batch.items()}
     if not hasattr(batch, "shape") or not active():
         return batch
     n = batch.shape[0] if n_global is None else n_global
-    w = world_size()
+    w = data_size()
     if n % w:
-        raise ValueError(f"global batch {n} not divisible by the world "
-                         f"size {w}")
+        raise ValueError(f"global batch {n} not divisible by the data "
+                         f"group's size {w}")
     per = n // w
-    return batch[rank() * per:(rank() + 1) * per]
+    return batch[data_rank() * per:(data_rank() + 1) * per]
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of `t` over the ranks (no gradient; `t` itself at world
-    size 1)."""
+    """The sum of `t` over the data group (no gradient; `t` itself at
+    world size 1)."""
     if not active():
         return t
     t = t.detach().clone()
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=_data_group())
     return t
 
 
@@ -214,7 +386,7 @@ def global_max(t: torch.Tensor) -> torch.Tensor:
     if not active():
         return t
     t = t.detach().clone()
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_data_group())
     return t
 
 
@@ -230,33 +402,36 @@ def global_mean(t: torch.Tensor) -> torch.Tensor:
 
 
 class _SumAcrossRanks(torch.autograd.Function):
-    """all_reduce(SUM) whose backward all-reduces the incoming gradient,
-    so that a gradient reaches every rank's inputs of the sum."""
+    """all_reduce(SUM) over the data group whose backward all-reduces the
+    incoming gradient, so that a gradient reaches every rank's inputs of
+    the sum."""
 
     @staticmethod
     def forward(ctx, t):
         t = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=_data_group())
         return t
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=_data_group())
         return grad
 
 
 def sum_across_ranks(t: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum over the ranks (`t` at world size 1)."""
+    """Differentiable sum over the data group (`t` at world size 1)."""
     if not active():
         return t
     return _SumAcrossRanks.apply(t)
 
 
 def sync_gradients(params: Sequence[torch.Tensor]):
-    """Sum every parameter's `.grad` over the ranks in one all-reduce
-    (per dtype). The losses carry global divisors, so the sum is the
-    global gradient. Nothing at world size 1."""
+    """Sum every parameter's `.grad` over the data group in one
+    all-reduce (per dtype). The losses carry global divisors, so the sum
+    is the global gradient. Nothing at world size 1. Under a grid that is
+    a rank's own heads and the replicated rest: the model group computes
+    the same loss, so nothing is summed over it."""
     if not active():
         return
     by_dtype = {}
@@ -264,7 +439,7 @@ def sync_gradients(params: Sequence[torch.Tensor]):
         by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
     for grads in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=_data_group())
         off = 0
         for g in grads:
             g.copy_(flat[off:off + g.numel()].view_as(g))

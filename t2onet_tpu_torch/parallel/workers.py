@@ -11,7 +11,9 @@ the limit is killed. Each rank runs
 
 which joins the group (`mesh.init_data_parallel`: the job's device and
 backend, gloo for the CPU and, when the job asks for it, for ranks that
-share one card), runs the job's kind and writes `rank{r}.pt`. The kinds:
+share one card), lays it out as a (data x model) grid when the job names
+"model_par" (`mesh.make_2d_mesh`), runs the job's kind and writes
+`rank{r}.pt`. The kinds:
 
 - "steps": training steps of the port's trainers, each from its own
   initial weights, on the rank's rows of a global batch: "supervised",
@@ -153,11 +155,14 @@ def build_case_actor(case, device, dtype):
 
 def run_step_case(case, device):
     """One training step of `case` on this rank's rows: its metrics,
-    launches, parameter digest and (with "full", the default; "rank0":
-    on rank 0 only) every gradient and the updated state_dict, on the
-    CPU. With "validate", rank 0 then runs `loop.eval_episode` on the
-    whole batch while the other ranks wait at a barrier, as the trainers
-    validate, and returns its images as "val"."""
+    launches, the parameters whose Adam moments it holds, parameter
+    digest, with "optimizer" the Adam state as an unsharded state holds
+    it, and (with "full", the default; "rank0": on rank 0 only) every
+    gradient and the updated state_dict, on the CPU. Under a model group
+    the heads are gathered (`TrainState.gather`) before the digest. With
+    "validate", rank 0 then runs `loop.eval_episode` on the whole batch
+    while the other ranks wait at a barrier, as the trainers validate,
+    and returns its images as "val"."""
     from t2onet_tpu_torch.cli.train_gan import GANState, gan_step
     from t2onet_tpu_torch.models.gan import DiscBundle, Seq2SeqGANLosses
     from t2onet_tpu_torch.ops import chain
@@ -205,7 +210,13 @@ def run_step_case(case, device):
         raise ValueError(f"unknown step kind {kind!r}")
     out = {"metrics": {k: float(v) for k, v in m.items()},
            "launches": dict(chain.LAUNCHES),
-           "digest": {n: param_digest(mod) for n, mod in modules.items()}}
+           # the parameters whose Adam moments this rank holds
+           "moments": [n for n, p in state.named if p in state.opt.state]}
+    if mesh.model_size() > 1:
+        state.gather()      # every head, current, on every rank
+    if case.get("optimizer"):
+        out["optimizer"] = _cpu(state.optimizer_state_dict())
+    out["digest"] = {n: param_digest(mod) for n, mod in modules.items()}
     if case.get("validate"):
         if mesh.rank() == 0:
             imgs, _ = loop.eval_episode(actor, {
@@ -225,6 +236,17 @@ def run_step_case(case, device):
                 "state_dict": {k: v.detach().cpu().clone()
                                for k, v in mod.state_dict().items()}}
     return out
+
+
+def _cpu(tree):
+    """A nest of dicts and lists with its tensors copied to the host."""
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu(v) for v in tree]
+    return tree
 
 
 def run_bn_case(case, device):
@@ -258,6 +280,8 @@ def main(job_dir: str):
     job = torch.load(os.path.join(job_dir, "job.pt"), weights_only=False)
     device = mesh.init_data_parallel(job.get("device", "cpu"),
                                      job.get("backend"))
+    if "model_par" in job:
+        mesh.make_2d_mesh(job["model_par"])
     if device.type == "cuda":
         set_cuda_precision()        # TF32 off, as every entry point
     try:

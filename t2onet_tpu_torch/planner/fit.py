@@ -1,5 +1,6 @@
 """Batched operator-parameter fitting (counterpart of
-`t2onet_tpu.planner.fit`, its selected-branch path).
+`t2onet_tpu.planner.fit`: the one-hot forms, `fit_op_params` and
+`execute_candidates`, and the selected-branch path the beam search runs).
 
 One Adam optimisation fits every (image, candidate op, restart) triple at
 once:
@@ -87,7 +88,7 @@ def _apply_selected(imgs, params, op_slots, n_starts, masks=None):
         elif name == "inpaint":
             y = x                       # parameterless without a filler
         else:
-            y = O._OP_FNS[name](x, p)
+            y = O.OP_FNS[name](x, p)
         y = clip(y, -1e4, 1e4)          # the bank's finite guard
         m = None
         if masks is not None:
@@ -131,10 +132,9 @@ def _sel_dist_fn(imgs, targets_b, op_slots, n_starts, masks, dist):
 B1, B2, EPS = 0.9, 0.999, 1e-8          # optax.adam's defaults
 
 
-def _adam_fit(per_candidate_dist, init_params, n_iters: int, lr: float):
-    """The multi-start Adam loop: `n_iters` Adam steps on the sum of the
-    independent per-candidate distances. Returns (final params, final
-    dists), detached.
+def adam_descent(loss_fn, init_params, n_iters: int, lr: float):
+    """`n_iters` Adam steps on the scalar `loss_fn(params)` from
+    `init_params`; returns the final params, detached.
 
     The step is optax.adam(lr)'s, in its f32 arithmetic:
     mu_hat / (sqrt(nu_hat) + eps) with the bias corrections 1 - b**t
@@ -149,7 +149,7 @@ def _adam_fit(per_candidate_dist, init_params, n_iters: int, lr: float):
     b2 = params.new_tensor(B2)
     for t in range(1, n_iters + 1):
         p = params.requires_grad_(True)
-        loss = per_candidate_dist(p).sum()
+        loss = loss_fn(p)
         if not loss.requires_grad:
             break     # only parameterless ops: every update would be 0
         (g,) = torch.autograd.grad(loss, p)
@@ -159,7 +159,15 @@ def _adam_fit(per_candidate_dist, init_params, n_iters: int, lr: float):
             mu_hat = mu / (1 - b1 ** t)
             nu_hat = nu / (1 - b2 ** t)
             params = p.detach() + mu_hat / (nu_hat.sqrt() + EPS) * -lr
-    params = params.detach()
+    return params.detach()
+
+
+def _adam_fit(per_candidate_dist, init_params, n_iters: int, lr: float):
+    """The multi-start Adam loop (`adam_descent`) on the sum of the
+    independent per-candidate distances. Returns (final params, final
+    dists), detached."""
+    params = adam_descent(lambda p: per_candidate_dist(p).sum(), init_params,
+                          n_iters, lr)
     with torch.no_grad():
         return params, per_candidate_dist(params)
 
@@ -168,6 +176,42 @@ def _broadcast_init(init_params, n, c):
     if init_params.ndim == 2:
         return init_params[None].expand(n, c, bank.MAX_PARAM)
     return init_params
+
+
+def fit_op_params(imgs, targets, onehot, init_params, n_iters: int = 100,
+                  lr: float = 0.05, masks=None, dist: str = "l1"):
+    """Fit every (image, candidate) pair at once, each candidate through
+    the bank's one-hot blend (`_apply_candidates`).
+
+    :param imgs: (N, 3, H, W) current beam images.
+    :param targets: (N, 3, H, W), or (1, 3, H, W) broadcast.
+    :param onehot: (C, 9) bank weights per candidate (slot 0 identity).
+    :param init_params: (N, C, 24) or (C, 24).
+    :param masks: per-candidate edit masks, (C, 1, H, W) or
+        (N, C, 1, H, W); None for global edits.
+    :param dist: 'l1' (mean abs) or 'l2' (mean squared).
+    :return: (params (N, C, 24), dists (N, C)): the final params and the
+        distance of the final edit.
+    """
+    n, c = imgs.shape[0], onehot.shape[0]
+    targets_b = targets.expand_as(imgs)
+
+    def per_candidate_dist(params):
+        diff = _apply_candidates(imgs, onehot, params, masks) \
+            - targets_b[:, None]
+        if dist == "l2":
+            return (diff * diff).mean(dim=(2, 3, 4))
+        return abs_(diff).mean(dim=(2, 3, 4))
+
+    return _adam_fit(per_candidate_dist, _broadcast_init(init_params, n, c),
+                     n_iters, lr)
+
+
+@torch.no_grad()
+def execute_candidates(imgs, onehot, params, masks=None):
+    """The candidates' edited images through the one-hot blend,
+    (N, C, 3, H, W) (masks in the per-candidate layout)."""
+    return _apply_candidates(imgs, onehot, params, masks)
 
 
 def fit_op_params_sel(imgs, targets, init_params, op_slots, n_starts,

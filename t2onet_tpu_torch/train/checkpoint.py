@@ -7,7 +7,9 @@ Each checkpoint holds the whole training state: the actor's state_dict
 optionally the state of the episode generator, so a resume continues
 exactly. Layout under `ckpt_dir`: `checkpoint_iter{itr:08d}.pt`,
 `checkpoint_best.pt` and `stats.json` (val L1 per checkpoint, best iter).
-An eval reads the actor's part alone (`restore_actor`).
+An eval reads the actor's part alone (`restore_actor`). Under a (data x
+model) grid every rank calls `TrainState.gather()` first, so that the
+checkpoint is an unsharded one.
 """
 
 from __future__ import annotations
@@ -110,7 +112,7 @@ class CheckpointManager:
     def _state_dict(state, generator=None):
         out = {"step": state.step,
                "model": state.actor.state_dict(),
-               "optimizer": state.opt.state_dict()}
+               "optimizer": state.optimizer_state_dict()}
         if generator is not None:
             out["generator"] = generator.get_state()
         return out

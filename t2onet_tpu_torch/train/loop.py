@@ -29,6 +29,14 @@ keeps its rows, BatchNorm normalises with the global statistics, and
 size W is the step of world size 1 up to the order of summation. The
 returned metrics are the global batch's. At world size 1 nothing of this
 runs.
+
+Under a (data x model) grid all of that runs over the data group, while
+the ranks of a model group split the parameter heads: each computes and
+steps its own block (`models.actor.ParamHeads`), and its Adam holds
+moments for those heads and the replicated rest only (the counterpart of
+JAX's `state_shardings`, which shards the heads' Adam moments with the
+heads). `TrainState.gather` brings every head and its moments to every
+rank, as an unsharded state holds them, before a checkpoint.
 """
 
 from __future__ import annotations
@@ -38,23 +46,87 @@ import torch
 from t2onet_tpu_torch.models.actor import Actor, select_end_images
 from t2onet_tpu_torch.ops import bank
 from t2onet_tpu_torch.ops.color import abs_
+from t2onet_tpu_torch.ops.operators import OP_NAMES
 from t2onet_tpu_torch.parallel import mesh
 
 
+def trainable(actor: Actor, owned_only: bool = True):
+    """[(name, parameter)] of the actor's trainable parameters in module
+    order; with `owned_only`, under a model group, the heads of other
+    ranks left out."""
+    own = tuple(f"executor.{OP_NAMES[i]}_op." for i in mesh.owned_heads())
+    return [(n, p) for n, p in actor.named_parameters()
+            if p.requires_grad and not (owned_only
+                                        and n.startswith("executor.")
+                                        and not n.startswith(own))]
+
+
+def _head_of(name: str) -> int:
+    """The op index of a head parameter's name, executor.{op}_op.*"""
+    return OP_NAMES.index(name.split(".")[1][:-len("_op")])
+
+
 class TrainState:
-    """The actor, its Adam optimizer and the step count."""
+    """The actor, its Adam optimizer over the parameters this rank trains
+    (`trainable`) and the step count."""
 
     def __init__(self, actor: Actor, learning_rate: float = 1e-3):
         self.actor = actor
-        self.params = [p for p in actor.parameters() if p.requires_grad]
+        self.named = trainable(actor)
+        self.params = [p for _, p in self.named]
         self.opt = torch.optim.Adam(self.params, lr=learning_rate,
                                     betas=(0.9, 0.999), eps=1e-8)
         self.step = 0
+        self._gathered = None          # (step, the unsharded Adam state)
+
+    def gather(self):
+        """Under a model group: broadcast every head's weights and Adam
+        moments from its owner, so that every rank's actor and
+        `optimizer_state_dict()` are an unsharded state's. Every rank of
+        the group calls it; without a model group it does nothing."""
+        if mesh.model_size() == 1:
+            return
+        local = {id(p): self.opt.state[p] for p in self.params
+                 if p in self.opt.state}
+        # Adam's count: every rank steps its Adam alike
+        step = next((st["step"] for st in local.values()), None)
+        state = {}
+        with torch.no_grad():
+            for i, (name, p) in enumerate(trainable(self.actor, False)):
+                if name.startswith("executor."):
+                    src = mesh.head_owner(_head_of(name))
+                    mesh.broadcast_from(p.data, src)
+                if step is None:
+                    continue
+                if id(p) in local:
+                    m = local[id(p)]["exp_avg"].clone()
+                    v = local[id(p)]["exp_avg_sq"].clone()
+                else:
+                    m, v = torch.zeros_like(p), torch.zeros_like(p)
+                if name.startswith("executor."):
+                    mesh.broadcast_from(m, src)
+                    mesh.broadcast_from(v, src)
+                state[i] = {"step": step.clone(), "exp_avg": m,
+                            "exp_avg_sq": v}
+        group = dict(self.opt.state_dict()["param_groups"][0])
+        group["params"] = list(range(len(trainable(self.actor, False))))
+        self._gathered = (self.step, {"state": state,
+                                      "param_groups": [group]})
+
+    def optimizer_state_dict(self):
+        """The Adam state as an unsharded state holds it: the optimizer's
+        own, or under a model group the one `gather` made at this step."""
+        if mesh.model_size() == 1:
+            return self.opt.state_dict()
+        if self._gathered is None or self._gathered[0] != self.step:
+            raise RuntimeError("under a model group every rank calls "
+                               "TrainState.gather() before a checkpoint")
+        return self._gathered[1]
 
     def apply_gradients(self, loss):
         """Backpropagate `loss`, sum the gradients over the data-parallel
-        ranks and take one Adam step over every trainable parameter. The
-        gradients stay in `.grad` until the next step."""
+        ranks and take one Adam step over every parameter this rank
+        trains. The gradients stay in `.grad` until the next step."""
         adam_step(self.opt, self.params, loss)
         self.step += 1
 
@@ -92,7 +164,7 @@ def global_draws(generator=None, noise_fn=None, normal_fn=None):
     as given at world size 1."""
     if not mesh.active():
         return noise_fn, normal_fn
-    w = mesh.world_size()
+    w = mesh.data_size()
 
     def rows(kind, fed):
         def fn(shape):

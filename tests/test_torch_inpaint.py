@@ -137,7 +137,7 @@ def test_save_load_round_trip(tiny, tmp_path):
     net, params, pnet, img, mask = tiny
     inpaint.save_inpaint(str(tmp_path / "port"), pnet)
     jinp.save_inpaint(str(tmp_path / "jax"), net, params)
-    loaded = inpaint.load_inpaint(str(tmp_path / "port"))
+    loaded = inpaint.load_inpaint(str(tmp_path / "port"), device="cpu")
     for k, v in pnet.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v)
     with torch.no_grad():
@@ -174,7 +174,8 @@ def test_edgeconnect_generators_match_jax(kind):
     model = jec.EdgeGenerator() if kind == "edge" else jec.InpaintGenerator()
     want = np.asarray(model.apply(jec.convert_edgeconnect_gen(sd, kind),
                                   jnp.asarray(x.transpose(0, 2, 3, 1))))
-    net = edgeconnect.load_generator({"iteration": 7, "generator": sd}, kind)
+    net = edgeconnect.load_generator({"iteration": 7, "generator": sd}, kind,
+                                     device="cpu")
     weights = {k: v.clone() for k, v in net.state_dict().items()}
     with torch.no_grad():
         got = net(torch.from_numpy(x)).numpy()
@@ -225,8 +226,8 @@ def test_edgeconnect_inpaint_fn_matches_jax():
         jec.convert_edgeconnect_gen(esd, "edge"),
         jec.convert_edgeconnect_gen(isd, "inpaint"), mask)(img)
     got = edgeconnect.make_edgeconnect_inpaint_fn(
-        edgeconnect.load_generator(esd, "edge"),
-        edgeconnect.load_generator(isd, "inpaint"),
+        edgeconnect.load_generator(esd, "edge", device="cpu"),
+        edgeconnect.load_generator(isd, "inpaint", device="cpu"),
         mask[None, None])(torch.from_numpy(img))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=0)
@@ -281,7 +282,8 @@ def test_train_inpaint_cli_draws_distinct_batches(tmp_path):
     assert set(m) == {"hole_l1", "hole_l1_blank", "hole_psnr",
                       "hole_psnr_blank"}
     assert all(np.isfinite(v) for v in m.values())
-    loaded = inpaint.load_inpaint(str(tmp_path / "inpaint_model"))
+    loaded = inpaint.load_inpaint(str(tmp_path / "inpaint_model"),
+                                  device="cpu")
     for k, v in net.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v.cpu())
     with open(tmp_path / "inpaint.jsonl") as f:
