@@ -1,0 +1,26 @@
+"""The benchmark's own tests: CPU rehearsals at tiny widths, and tests
+marked `card` that need a CUDA card and skip without one."""
+
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card")
+
+
+@pytest.fixture
+def card():
+    """Skips the test where PyTorch finds no CUDA card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
