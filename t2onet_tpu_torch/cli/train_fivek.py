@@ -23,8 +23,9 @@ the planner's actions):
 `--per_step_bn` runs the supervised phase's ResNet once per decode step,
 `--episode_probe N` decodes the episode phase at N px (execution and the
 L1 stay at --img_size), and `--profile_steps N` traces N steps with
-torch.profiler. The model's modes are the common flags `--vis_bf16` and
-`--discrete_param` / `--discrete_step`.
+torch.profiler and the host's spans (`utils.profiling`). The model's
+modes are the common flags `--vis_bf16` and `--discrete_param` /
+`--discrete_step`.
 
 It runs on the card (`--device cuda`, the default) and raises where
 PyTorch finds none; `--device cpu` runs it on the CPU.
@@ -103,7 +104,8 @@ def train_parser() -> argparse.ArgumentParser:
                         "--img_size; 0 = off")
     p.add_argument("--profile_steps", type=int, default=0,
                    help="trace N steps (after 4 warm-up steps) with "
-                        "torch.profiler into {run_dir}/profile")
+                        "torch.profiler into {run_dir}/profile, the host "
+                        "spans beside it as spans.json")
     return p
 
 

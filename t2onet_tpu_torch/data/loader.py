@@ -6,16 +6,23 @@ them onto the device ahead of use, so the card does not wait on batch
 preparation: on a CUDA device each array is copied into pinned host
 memory and sent with a non-blocking copy on the current stream, and
 uint8 images become float32 in [0, 1] on the device.
+
+While spans are recorded (`utils.profiling`) the pump's work on each
+batch (the iterator's `next()`, then `to_device`) is `data.stage` and the
+consumer's wait for a batch `data.wait`.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from t2onet_tpu_torch.utils.profiling import span
 
 
 class Prefetcher:
@@ -56,11 +63,13 @@ class Prefetcher:
 
     def _pump(self, it: Iterator):
         try:
-            for batch in it:
-                if self._stop.is_set():
-                    return
-                if self._to_device is not None:
-                    batch = self._to_device(batch)
+            for number in itertools.count():
+                with span("data.stage", batch=number):
+                    batch = next(it, self._SENTINEL)
+                    if batch is self._SENTINEL or self._stop.is_set():
+                        return
+                    if self._to_device is not None:
+                        batch = self._to_device(batch)
                 if not self._put(batch):
                     return
         except BaseException as e:          # raised on the consumer side
@@ -76,7 +85,8 @@ class Prefetcher:
             if self._err is not None:
                 raise self._err
             raise StopIteration
-        item = self._q.get()
+        with span("data.wait"):
+            item = self._q.get()
         if item is self._SENTINEL:
             self._done = True
             if self._err is not None:

@@ -35,12 +35,21 @@ event a device after the copies; it returns while the card works.
 `io_threads` threads. The decode reads nothing back from the device (the
 request lengths go to the encoder from the host), so the host stacks
 batch k+1 while the card runs batch k.
+
+While spans are recorded (`utils.profiling`) a micro-batch's launch is
+`serve.launch` (its batch id, bucket, size and request ids), holding
+`serve.launch.stack` (padding and stacking into pinned memory) and
+`serve.launch.decode` (the decode as the host enqueues it); the
+batcher's waits are `serve.batcher.readback` and `serve.batcher.linger`.
+`stats["queue_wait_s"]` sums each launched request's wait from submit to
+its micro-batch's launch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 import threading
 import time
 import traceback
@@ -59,6 +68,7 @@ from t2onet_tpu_torch.ops.chain import fused_chain_sharded, vocab_ops_to_slots
 from t2onet_tpu_torch.ops.operators import OP_NAMES
 from t2onet_tpu_torch.parallel.mesh import Mesh, as_mesh, shard_rows
 from t2onet_tpu_torch.precision import set_cuda_precision
+from t2onet_tpu_torch.utils.profiling import span
 
 END_ID = 2
 MAX_PARAM = 24
@@ -93,6 +103,7 @@ class _Pending:
     img: np.ndarray
     x_idx: np.ndarray
     t_submit: float
+    rid: int                            # the request's id in its engine
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[EditResult] = None
     error: Optional[BaseException] = None
@@ -100,9 +111,11 @@ class _Pending:
 
 @dataclass
 class _InFlight:
-    """A launched micro-batch: its requests, their valid (h, w), the
-    bucket, and its outputs on the host (pinned on a CUDA device, written
-    by copies that `events` follow, one a device; none on the CPU)."""
+    """A launched micro-batch: its id, its requests, their valid (h, w),
+    the bucket, and its outputs on the host (pinned on a CUDA device,
+    written by copies that `events` follow, one a device; none on the
+    CPU)."""
+    batch: int
     chunk: List[_Pending]
     valids: List[Tuple[int, int]]
     bucket: Tuple[int, int]
@@ -176,8 +189,13 @@ class ServingEngine:
         self._streams = {}              # a CUDA stream a device, at first use
         self._lock = threading.Lock()
         self._queue: List[_Pending] = []
+        # requests and micro-batches answered, host seconds launching and
+        # reading back, and the launched requests' summed wait from
+        # submit to the start of their micro-batch's launch
         self.stats = {"requests": 0, "batches": 0, "launch_s": 0.0,
-                      "sync_s": 0.0}
+                      "sync_s": 0.0, "queue_wait_s": 0.0}
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
 
     # -- stages -----------------------------------------------------------
     def _decode(self, x, dec_in, host_lengths, device):
@@ -257,7 +275,8 @@ class ServingEngine:
         """Edit (3, h, w) f32 images by their requests; images of one
         bucket run together, max_batch at a time. Order is kept."""
         pending = [_Pending(img=self._prep_img(im), x_idx=self._tokenize(r),
-                            t_submit=time.time())
+                            t_submit=time.time(),
+                            rid=next(self._request_ids))
                    for im, r in zip(images, requests)]
         self._process(pending)
         return [p.result for p in pending]
@@ -266,7 +285,8 @@ class ServingEngine:
         """Enqueue one request; returns a handle with .done / .result /
         .error. flush() (or a MicroBatcher) processes the queue."""
         p = _Pending(img=self._prep_img(image),
-                     x_idx=self._tokenize(request), t_submit=time.time())
+                     x_idx=self._tokenize(request), t_submit=time.time(),
+                     rid=next(self._request_ids))
         with self._lock:
             self._queue.append(p)
         return p
@@ -317,10 +337,17 @@ class ServingEngine:
             groups.setdefault(b, []).append(p)
         for bucket, group in groups.items():
             for i in range(0, len(group), self.max_batch):
+                chunk = group[i:i + self.max_batch]
+                batch = next(self._batch_ids)
                 t0 = time.time()
-                rec = self._launch_chunk(group[i:i + self.max_batch], bucket)
+                with span("serve.launch", batch=batch, bucket=bucket,
+                          n=len(chunk), requests=[p.rid for p in chunk]):
+                    rec = self._launch_chunk(chunk, bucket, batch)
+                launch_s = time.time() - t0
+                wait_s = sum(t0 - p.t_submit for p in chunk)
                 with self._lock:
-                    self.stats["launch_s"] += time.time() - t0
+                    self.stats["launch_s"] += launch_s
+                    self.stats["queue_wait_s"] += wait_s
                 yield rec
 
     def _decode_input(self, stack_d, valids):
@@ -333,24 +360,27 @@ class ServingEngine:
                           for j, (h, w) in enumerate(valids)])
 
     @torch.inference_mode()
-    def _launch_chunk(self, chunk: List[_Pending], bucket) -> _InFlight:
+    def _launch_chunk(self, chunk: List[_Pending], bucket,
+                      batch: int) -> _InFlight:
         """Pad the micro-batch to a multiple of the mesh size with its
         last request, upload, decode and execute each row block on its
         device, and copy every output into the batch's host buffers
         (pinned where a card runs, with an event a card after the
         copies)."""
         m = self.mesh
-        padded, valids = zip(*(pad_to_bucket(p.img, self.quantum,
-                                             self.max_side) for p in chunk))
         n = len(chunk)
         pad = (-n) % m.size
-        valids_p = list(valids) + [valids[-1]] * pad
-        stack = self._host((n + pad, 3) + bucket, torch.float32)
-        np.stack(list(padded) + [padded[-1]] * pad, out=stack.numpy())
-        tokens = self._host((n + pad, self.encoder_max_len), torch.int64)
-        np.stack([p.x_idx for p in chunk] + [chunk[-1].x_idx] * pad,
-                 out=tokens.numpy())
-        host_lengths = (tokens != 0).sum(dim=1)
+        with span("serve.launch.stack"):
+            padded, valids = zip(*(pad_to_bucket(p.img, self.quantum,
+                                                 self.max_side)
+                                   for p in chunk))
+            valids_p = list(valids) + [valids[-1]] * pad
+            stack = self._host((n + pad, 3) + bucket, torch.float32)
+            np.stack(list(padded) + [padded[-1]] * pad, out=stack.numpy())
+            tokens = self._host((n + pad, self.encoder_max_len), torch.int64)
+            np.stack([p.x_idx for p in chunk] + [chunk[-1].x_idx] * pad,
+                     out=tokens.numpy())
+            host_lengths = (tokens != 0).sum(dim=1)
         rows = shard_rows(n + pad, m)
         with contextlib.ExitStack() as streams:
             for d in m.distinct:
@@ -358,9 +388,11 @@ class ServingEngine:
             wires, ops, params = [], [], []
             for r, d in zip(rows, m.devices):
                 stack_d = stack[r].to(d, non_blocking=True)
-                o, p = self._decode(tokens[r].to(d, non_blocking=True),
-                                    self._decode_input(stack_d, valids_p[r]),
-                                    host_lengths[r], d)
+                with span("serve.launch.decode"):
+                    o, p = self._decode(tokens[r].to(d, non_blocking=True),
+                                        self._decode_input(stack_d,
+                                                           valids_p[r]),
+                                        host_lengths[r], d)
                 wires.append(self._wire(stack_d))
                 ops.append(o)
                 params.append(p)
@@ -377,8 +409,8 @@ class ServingEngine:
                                 non_blocking=True)
             events = [self._record(d) for d in m.distinct
                       if d.type == "cuda"]
-        return _InFlight(list(chunk), list(valids), bucket, out_h[:n],
-                         meta_h[:n], events)
+        return _InFlight(batch, list(chunk), list(valids), bucket,
+                         out_h[:n], meta_h[:n], events)
 
     def _record(self, device):
         """An event on the engine's stream of `device`, after the work
@@ -553,7 +585,9 @@ class MicroBatcher:
 
     def _readback(self, batch, recs):
         try:
-            self.engine.readback(recs)
+            with span("serve.batcher.readback",
+                      batches=[r.batch for r in recs]):
+                self.engine.readback(recs)
         except Exception as e:  # noqa: BLE001 — serving boundary
             traceback.print_exc()
             _mark_failed(batch, e)
@@ -577,6 +611,8 @@ class MicroBatcher:
                     self._readback(*inflight.popleft())
                     continue
                 if not todo:
-                    time.sleep(self.linger_s / 4 if self.linger_s else 1e-3)
+                    with span("serve.batcher.linger"):
+                        time.sleep(self.linger_s / 4 if self.linger_s
+                                   else 1e-3)
             while inflight:                 # drain on stop
                 self._readback(*inflight.popleft())

@@ -37,6 +37,12 @@ moments for those heads and the replicated rest only (the counterpart of
 JAX's `state_shardings`, which shards the heads' Adam moments with the
 heads). `TrainState.gather` brings every head and its moments to every
 rank, as an unsharded state holds them, before a checkpoint.
+
+While spans are recorded (`utils.profiling`) a step is `train.step` (its
+kind and number), holding `train.forward` (the actor's forward and the
+loss), `train.backward` (the gradients, missing ones zero-filled) and
+`train.optimizer` (the ranks' gradient sum and Adam), as the host
+enqueues them.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from t2onet_tpu_torch.ops import bank
 from t2onet_tpu_torch.ops.color import abs_
 from t2onet_tpu_torch.ops.operators import OP_NAMES
 from t2onet_tpu_torch.parallel import mesh
+from t2onet_tpu_torch.utils.profiling import span
 
 
 def trainable(actor: Actor, owned_only: bool = True):
@@ -136,13 +143,15 @@ def adam_step(opt, params, loss):
     loss does not reach gets a zero gradient, as optax treats a missing
     one; under a data-parallel group the gradients are summed over the
     ranks first."""
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    mesh.sync_gradients(params)
-    opt.step()
+    with span("train.backward"):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    with span("train.optimizer"):
+        mesh.sync_gradients(params)
+        opt.step()
 
 
 def global_metrics(metrics):
@@ -239,20 +248,22 @@ def supervised_step(state: TrainState, batch, per_step_bn: bool = False):
     gt_params (B,T-2,24), all on the actor's device (under data
     parallelism, this rank's rows). `per_step_bn`: one
     ResNet forward per decode step (`Actor.supervised`)."""
-    actor = state.actor
-    actor.train()
-    out = actor.supervised(batch["x"], batch["y"], batch["img_x"],
-                           batch["img_y"], per_step_bn=per_step_bn)
-    op_loss, param_loss = supervised_losses(out[2], out[1], batch["y"],
-                                            batch["gt_params"])
-    if actor.cfg.discrete_param:
-        param_loss = param_loss + discrete_param_loss(
-            out[3], batch["y"], batch["gt_params"], actor.opcfg,
-            actor.cfg.discrete_step)
-    loss = op_loss + param_loss
-    state.apply_gradients(loss)
-    return global_metrics({"loss": loss, "op_loss": op_loss,
-                           "param_loss": param_loss})
+    with span("train.step", kind="supervised", step=state.step + 1):
+        actor = state.actor
+        actor.train()
+        with span("train.forward"):
+            out = actor.supervised(batch["x"], batch["y"], batch["img_x"],
+                                   batch["img_y"], per_step_bn=per_step_bn)
+            op_loss, param_loss = supervised_losses(
+                out[2], out[1], batch["y"], batch["gt_params"])
+            if actor.cfg.discrete_param:
+                param_loss = param_loss + discrete_param_loss(
+                    out[3], batch["y"], batch["gt_params"], actor.opcfg,
+                    actor.cfg.discrete_step)
+            loss = op_loss + param_loss
+        state.apply_gradients(loss)
+        return global_metrics({"loss": loss, "op_loss": op_loss,
+                               "param_loss": param_loss})
 
 
 def episode_step(state: TrainState, batch, generator=None, sample=True,
@@ -265,16 +276,18 @@ def episode_step(state: TrainState, batch, generator=None, sample=True,
     draws, `global_draws`); `fused_exec` executes each step through
     `ops.step.fused_step`; `probe_size` decodes each step at that
     resolution while execution and the L1 stay at the batch's."""
-    state.actor.train()
-    noise_fn, _ = global_draws(generator, noise_fn)
-    out = state.actor.episode(batch["x"], batch["img_x"], sample=sample,
-                              generator=generator, noise_fn=noise_fn,
-                              fused_exec=fused_exec,
-                              masks=batch.get("masks_vocab"),
-                              probe_size=probe_size)
-    loss = episode_l1_loss(out["imgs"], out["ops"], batch["gt_img"])
-    state.apply_gradients(loss)
-    return global_metrics({"L1_loss": loss})
+    with span("train.step", kind="episode", step=state.step + 1):
+        state.actor.train()
+        noise_fn, _ = global_draws(generator, noise_fn)
+        with span("train.forward"):
+            out = state.actor.episode(
+                batch["x"], batch["img_x"], sample=sample,
+                generator=generator, noise_fn=noise_fn,
+                fused_exec=fused_exec, masks=batch.get("masks_vocab"),
+                probe_size=probe_size)
+            loss = episode_l1_loss(out["imgs"], out["ops"], batch["gt_img"])
+        state.apply_gradients(loss)
+        return global_metrics({"L1_loss": loss})
 
 
 @torch.no_grad()

@@ -6,11 +6,12 @@ same files), the decoded-item cache and its `T2ONET_CACHE_GB` budget,
 the FiveK train split of `build_dataset_and_vocab`, one supervised and
 one sampled episode step through the fused step on a real batch at tiny
 widths (the tolerances of test_torch_train.py, `check_train_step`), and
-the trainer's `--fs_only`, `train_actor_fs`, `--profile_steps` and
-`utils.profiling.PhaseTimer`."""
+the trainer's `--fs_only`, `train_actor_fs`, `--profile_steps` and a
+phase summary from `utils.profiling`'s spans."""
 
 import argparse
 import glob
+import json
 import os
 
 import jax
@@ -221,7 +222,8 @@ def test_train_actor_fs_adds_fs_only(monkeypatch):
 def test_real_data_training_validates_and_profiles(tmp_path, monkeypatch):
     """Real FiveK train batches, alternating phases, validation on real
     FiveK val at the train size, a checkpoint, and --profile_steps 2:
-    steps 5 and 6 traced into {run_dir}/profile."""
+    steps 5 and 6 traced into {run_dir}/profile, their spans beside the
+    trace in spans.json."""
     calls = _count_steps(monkeypatch)
     run = str(tmp_path)
     state = train_fivek.main(TINY + ["--num_iters", "6", "--profile_steps",
@@ -230,6 +232,11 @@ def test_real_data_training_validates_and_profiles(tmp_path, monkeypatch):
     assert state.step == 6 and calls == {"supervised": 3, "episode": 3}
     traces = glob.glob(os.path.join(run, "profile", "*.pt.trace.json"))
     assert len(traces) == 1 and os.path.getsize(traces[0]) > 0
+    with open(os.path.join(run, "profile", "spans.json")) as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e["name"] == "train.step"]
+    assert sorted(e["args"]["step"] for e in steps) == [5, 6]
+    assert all(e["ph"] == "X" and e["dur"] > 0 for e in steps)
     assert os.path.exists(os.path.join(run, "seq2seqL1_model",
                                        "checkpoint_iter00000006.pt"))
     with open(os.path.join(run, "metrics.jsonl")) as f:
@@ -237,13 +244,21 @@ def test_real_data_training_validates_and_profiles(tmp_path, monkeypatch):
 
 
 def test_phase_timer_keeps_a_running_mean(monkeypatch):
-    ticks = iter([0.0, 1.0, 1.0, 4.0, 4.0, 6.0])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(ticks))
-    t = profiling.PhaseTimer()
-    for _ in range(3):
-        with t.phase("step"):
-            pass
-    s = t.summary()["step"]
-    assert t.avg("step") == pytest.approx(2.0) and s["n"] == 3
-    assert s["p50"] == 2.0 and s["p90"] == 3.0
-    assert "step: 2000.0ms" in t.report()
+    """A phase's mean, p50, p90 and count, as a caller of `take_spans`
+    summarises the spans of one name."""
+    ticks = iter([0, 1, 1, 4, 4, 6])
+    monkeypatch.setattr(profiling.time, "time_ns",
+                        lambda: next(ticks) * 10 ** 9)
+    profiling.start_spans()
+    try:
+        for _ in range(3):
+            with profiling.span("step"):
+                pass
+    finally:
+        spans, dropped = profiling.take_spans()
+    xs = sorted((s.end_ns - s.start_ns) / 1e9 for s in spans
+                if s.name == "step")
+    assert dropped == 0 and len(xs) == 3
+    assert sum(xs) / len(xs) == pytest.approx(2.0)
+    assert xs[len(xs) // 2] == 2.0
+    assert xs[min(int(len(xs) * 0.9), len(xs) - 1)] == 3.0
