@@ -48,6 +48,24 @@ EPISODE_OP_MASK = np.array(
 
 END_OP_ID = 2
 
+_OP_MASKS = {}              # EPISODE_OP_MASK on each device, made once
+
+
+def episode_op_mask(device):
+    """EPISODE_OP_MASK as a tensor on `device`, made there once. Not a
+    buffer, so the state_dict keys stay the reference's. Made outside
+    inference mode, so a training step can save it for its backward
+    after serving made it; never written in place. Copying it from
+    pageable host memory on every episode would be a host-to-device copy
+    that a CUDA graph's capture forbids."""
+    device = torch.device(device)
+    mask = _OP_MASKS.get(device)
+    if mask is None:
+        with torch.inference_mode(False):
+            mask = torch.as_tensor(EPISODE_OP_MASK, device=device)
+        _OP_MASKS[device] = mask
+    return mask
+
 
 def _renorm_masked_probs(probs, op_mask, n_vocab):
     """Hard-mask and renormalise; a row the mask empties entirely emits
@@ -321,16 +339,30 @@ class Actor(nn.Module):
         :return: dict with imgs (B, S, 3, H, W), ops (B, S),
             params (B, S, 24), logprobs (B, S, n_cls), attn (B, S, L).
         """
+        return self.rollout(self.lang_encoder(x, host_lengths), img_x,
+                            sample=sample, generator=generator,
+                            noise_fn=noise_fn, fused_exec=fused_exec,
+                            masks=masks, param_noise=param_noise,
+                            probe_size=probe_size, normal_fn=normal_fn)
+
+    def rollout(self, encoded, img_x, sample: bool = False, generator=None,
+                noise_fn=None, fused_exec: bool = False, masks=None,
+                param_noise: float = 0.0, probe_size=None, normal_fn=None):
+        """`episode` from the request encoder's outputs on: `encoded` is
+        `lang_encoder(x)`'s (outputs, (h, c), valid); the other arguments
+        and the result are `episode`'s. Greedy, its shapes follow the rows
+        and the image alone and it reads nothing back from the device: the
+        serving engine replays it as a CUDA graph (`serve._DecodeGraph`)."""
         cfg = self.cfg
-        b = x.shape[0]
+        b = img_x.shape[0]
+        device = img_x.device
         draw = _draws(generator, noise_fn, normal_fn)
-        enc_out, enc_hidden, enc_valid = self.lang_encoder(x, host_lengths)
+        enc_out, enc_hidden, enc_valid = encoded
         enc_valid = self._attn_mask(enc_valid)
         carry = self.decoder.init_carry(enc_hidden)
-        op_mask = torch.as_tensor(EPISODE_OP_MASK, device=x.device) \
-            .expand(b, cfg.op_vocab_size)
+        op_mask = episode_op_mask(device).expand(b, cfg.op_vocab_size)
         pred_op = torch.full((b,), cfg.start_id, dtype=torch.long,
-                             device=x.device)
+                             device=device)
         img = img_x
         ys = {"imgs": [], "ops": [], "params": [], "logprobs": [],
               "attn": []}
@@ -404,8 +436,7 @@ class Actor(nn.Module):
         probs = (torch.exp(logprob) * (1.0 - self.explore_prob)
                  + self.explore_prob)
         if op_mask is None:
-            op_mask = torch.as_tensor(EPISODE_OP_MASK, device=x.device) \
-                .expand(b, cfg.op_vocab_size)
+            op_mask = episode_op_mask(x.device).expand(b, cfg.op_vocab_size)
         probs = _renorm_masked_probs(probs, op_mask, cfg.op_vocab_size)
         pred_op = torch.argmax(draw("gumbel", probs.shape)
                                + torch.log(probs.detach() + 1e-30), dim=-1)

@@ -36,10 +36,21 @@ event a device after the copies; it returns while the card works.
 request lengths go to the encoder from the host), so the host stacks
 batch k+1 while the card runs batch k.
 
+On a CUDA device the decode after the request encoder (`Actor.rollout`,
+about 1,700 operations for five steps) replays a CUDA graph, one for
+each device and decode input shape, so one for each row count at the
+probe (`_DecodeGraph`). The encoder stays eager: its packing takes each
+request's length from the host. So do the probe resize and the execute.
+The first sight of a shape runs eagerly, which serves its rows, and then
+captures; `stats` counts `decode_calls` (row blocks decoded),
+`decode_graph_captures` and `decode_graph_replays`. On the CPU the
+decode runs eagerly.
+
 While spans are recorded (`utils.profiling`) a micro-batch's launch is
 `serve.launch` (its batch id, bucket, size and request ids), holding
 `serve.launch.stack` (padding and stacking into pinned memory) and
-`serve.launch.decode` (the decode as the host enqueues it); the
+`serve.launch.decode` (the decode as the host enqueues it; `graphed`:
+whether it replays a graph); the
 batcher's waits are `serve.batcher.readback` and `serve.batcher.linger`.
 `stats["queue_wait_s"]` sums each launched request's wait from submit to
 its micro-batch's launch.
@@ -124,6 +135,48 @@ class _InFlight:
     events: List[torch.cuda.Event]
 
 
+class _DecodeGraph:
+    """A CUDA graph of the greedy `Actor.rollout` of one decode input
+    shape on one device, with its static inputs (the encoder's outputs,
+    (h, c), the valid mask and the decode input) and outputs (ops,
+    params). Captured after an eager run of the same shape on the same
+    stream (cuDNN's and cuBLAS's first-use work done); in thread-local
+    mode, so the IO threads' event waits may go on meanwhile.
+
+    The graph reads the actor's weights and buffers where they were at
+    the capture. Moving the actor again moves some: `.to()`, even onto
+    its own device (another engine over the same actor), flattens the
+    LSTMs' weights into new storage and frees the old. `moved()` tells."""
+
+    def __init__(self, actor, encoded, dec_in, pool, stream):
+        self.weights = list(itertools.chain(actor.parameters(),
+                                            actor.buffers()))
+        self.where = [t.data_ptr() for t in self.weights]
+        self.replays = 0
+        enc_out, (h, c), valid = encoded
+        self.inputs = [t.clone() for t in (enc_out, h, c, valid, dec_in)]
+        enc_out, h, c, valid, dec_in = self.inputs
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = actor.rollout((enc_out, (h, c), valid), dec_in)
+        self.ops, self.params = out["ops"], out["params"]
+
+    def moved(self) -> bool:
+        """Whether a weight or buffer lives elsewhere than at the capture."""
+        return [t.data_ptr() for t in self.weights] != self.where
+
+    def __call__(self, encoded, dec_in):
+        """Copy the inputs in, replay, and clone the outputs: the next
+        replay (the next row block on this device) overwrites them."""
+        enc_out, (h, c), valid = encoded
+        for static, t in zip(self.inputs, (enc_out, h, c, valid, dec_in)):
+            static.copy_(t)
+        self.graph.replay()
+        self.replays += 1
+        return self.ops.clone(), self.params.clone()
+
+
 class ServingEngine:
     """Micro-batching two-stage server.
 
@@ -187,21 +240,66 @@ class ServingEngine:
         self.io_threads = max(1, io_threads)
         self._io_pool = None
         self._streams = {}              # a CUDA stream a device, at first use
+        # the decode's CUDA graphs by `_graph_key`, the memory pool that
+        # a device's graphs share, and a lock that keeps one thread at a
+        # time on the graphs and their static buffers
+        self._graphs: Dict[tuple, _DecodeGraph] = {}
+        self._graph_pools = {}
+        self._graph_lock = threading.Lock()
         self._lock = threading.Lock()
         self._queue: List[_Pending] = []
         # requests and micro-batches answered, host seconds launching and
-        # reading back, and the launched requests' summed wait from
-        # submit to the start of their micro-batch's launch
+        # reading back, the launched requests' summed wait from submit to
+        # the start of their micro-batch's launch, and row blocks decoded,
+        # by a graph's replay or capture among them
         self.stats = {"requests": 0, "batches": 0, "launch_s": 0.0,
-                      "sync_s": 0.0, "queue_wait_s": 0.0}
+                      "sync_s": 0.0, "queue_wait_s": 0.0, "decode_calls": 0,
+                      "decode_graph_replays": 0, "decode_graph_captures": 0}
         self._request_ids = itertools.count()
         self._batch_ids = itertools.count()
 
     # -- stages -----------------------------------------------------------
     def _decode(self, x, dec_in, host_lengths, device):
-        out = self.replicas[device].episode(x, dec_in,
-                                            host_lengths=host_lengths)
-        return out["ops"], out["params"]
+        """The greedy rollout of one row block on `device`: (ops (rows, S),
+        params (rows, S, 24)). The request encoder runs eagerly; on a
+        CUDA device the rest replays the graph of its `_graph_key`, or at
+        the key's first sight, or once the actor's weights have moved,
+        runs eagerly and then captures one."""
+        actor = self.replicas[device]
+        encoded = actor.lang_encoder(x, host_lengths)
+        key = self._graph_key(device, dec_in)
+        counter = None
+        if key is None:
+            out = actor.rollout(encoded, dec_in)
+            ops, params = out["ops"], out["params"]
+        else:
+            with self._graph_lock:
+                graph = self._graphs.get(key)
+                if graph is not None and not graph.moved():
+                    ops, params = graph(encoded, dec_in)
+                    counter = "decode_graph_replays"
+                else:
+                    out = actor.rollout(encoded, dec_in)
+                    ops, params = out["ops"], out["params"]
+                    pool = self._graph_pools.setdefault(
+                        device, torch.cuda.graph_pool_handle())
+                    self._graphs[key] = _DecodeGraph(
+                        actor, encoded, dec_in, pool, self._stream(device))
+                    counter = "decode_graph_captures"
+        with self._lock:
+            self.stats["decode_calls"] += 1
+            if counter is not None:
+                self.stats[counter] += 1
+        return ops, params
+
+    @staticmethod
+    def _graph_key(device, dec_in):
+        """The decode graph a row block replays: one for each device and
+        decode input shape (rows included) on a CUDA device; None (eager)
+        elsewhere."""
+        if device.type != "cuda":
+            return None
+        return device, tuple(dec_in.shape)
 
     def _execute(self, imgs, slots, params):
         """Execute a batch: lists of its shards over the mesh, each on its
@@ -256,18 +354,26 @@ class ServingEngine:
         """A host buffer: pinned where a card runs (non-blocking copies)."""
         return torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
 
-    def _on_stream(self, device):
-        """The engine's CUDA stream on `device` as the current one there;
-        it first waits for the caller's stream, where the weights were
-        written. Nothing on the CPU."""
-        if device.type != "cuda":
-            return contextlib.nullcontext()
-        with self._lock:            # one stream a device, whichever thread
+    def _stream(self, device):
+        """The engine's CUDA stream on `device`: one a device, whichever
+        thread asks first."""
+        with self._lock:
             if device not in self._streams:
                 self._streams[device] = torch.cuda.Stream(device)
-            stream = self._streams[device]
-        stream.wait_stream(torch.cuda.current_stream(device))
-        return torch.cuda.stream(stream)
+            return self._streams[device]
+
+    @contextlib.contextmanager
+    def _on_streams(self):
+        """The engine's CUDA stream on each CUDA device of the mesh as the
+        current one there, each first waiting for the caller's stream,
+        where the weights were written. Nothing on the CPU."""
+        with contextlib.ExitStack() as streams:
+            for d in self.mesh.distinct:
+                if d.type == "cuda":
+                    stream = self._stream(d)
+                    stream.wait_stream(torch.cuda.current_stream(d))
+                    streams.enter_context(torch.cuda.stream(stream))
+            yield
 
     # -- batch path ---------------------------------------------------------
     def edit_batch(self, images: Sequence[np.ndarray],
@@ -382,17 +488,16 @@ class ServingEngine:
                      out=tokens.numpy())
             host_lengths = (tokens != 0).sum(dim=1)
         rows = shard_rows(n + pad, m)
-        with contextlib.ExitStack() as streams:
-            for d in m.distinct:
-                streams.enter_context(self._on_stream(d))
+        with self._on_streams():
             wires, ops, params = [], [], []
             for r, d in zip(rows, m.devices):
                 stack_d = stack[r].to(d, non_blocking=True)
-                with span("serve.launch.decode"):
+                with span("serve.launch.decode") as sp:
+                    dec_in = self._decode_input(stack_d, valids_p[r])
                     o, p = self._decode(tokens[r].to(d, non_blocking=True),
-                                        self._decode_input(stack_d,
-                                                           valids_p[r]),
-                                        host_lengths[r], d)
+                                        dec_in, host_lengths[r], d)
+                    graph = self._graphs.get(self._graph_key(d, dec_in))
+                    sp.set(graphed=graph is not None and graph.replays > 0)
                 wires.append(self._wire(stack_d))
                 ops.append(o)
                 params.append(p)
@@ -513,11 +618,12 @@ class ServingEngine:
                   for d in self.mesh.devices]
 
         def once():
-            decoded = [self._decode(x, dec, host_lengths, d)
-                       for d, x, _, dec in shards]
-            return self._execute([native for _, _, native, _ in shards],
-                                 [program_slots(o) for o, _ in decoded],
-                                 [p for _, p in decoded])
+            with self._on_streams():
+                decoded = [self._decode(x, dec, host_lengths, d)
+                           for d, x, _, dec in shards]
+                return self._execute([native for _, _, native, _ in shards],
+                                     [program_slots(o) for o, _ in decoded],
+                                     [p for _, p in decoded])
 
         def barrier(outs):
             for d in self.mesh.distinct:

@@ -9,7 +9,8 @@
   ids, a step number, a bucket). Off, which is the default, it checks
   one module global and returns a shared no-op: it reads no clock and
   records nothing. Spans record nothing on the device and add no
-  synchronisation.
+  synchronisation. `set(**attrs)` on the span adds attributes learnt
+  inside it.
 - `start_spans()` starts recording into one bounded buffer;
   `take_spans()` stops and hands back the spans and the count of those
   the full buffer dropped. One recording runs at a time, across every
@@ -77,6 +78,9 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs):
+        pass
+
 
 _OFF = _Off()
 
@@ -104,6 +108,9 @@ class _On:
                           threading.get_native_id(), self.start, end,
                           self.attrs))
         return False
+
+    def set(self, **attrs):
+        self.attrs.update(attrs)
 
 
 def span(name: str, **attrs):
