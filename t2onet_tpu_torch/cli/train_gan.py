@@ -53,11 +53,14 @@ from t2onet_tpu_torch.train.checkpoint import (CheckpointManager,
 from t2onet_tpu_torch.parallel import mesh
 from t2onet_tpu_torch.train.loop import (TrainState, adam_step, global_draws,
                                          global_metrics, supervised_step)
+from t2onet_tpu_torch.utils.profiling import span
 
 
 class GANState:
     """The discriminator bundle and the GAN iteration's two Adams: G's over
-    the actor's trainable parameters, D's over the bundle's."""
+    the actor's trainable parameters, D's over the bundle's. `stats`
+    counts, always on, the G and D updates taken and the statistics
+    updates (`DiscBundle.update_stats`) made."""
 
     def __init__(self, bundle: DiscBundle, actor_params, gan_lr: float = 2e-4,
                  beta1: float = 0.5):
@@ -68,6 +71,7 @@ class GANState:
                                       betas=(beta1, 0.999), eps=1e-8)
         self.g_opt = torch.optim.Adam(self.g_params, lr=gan_lr,
                                       betas=(beta1, 0.999), eps=1e-8)
+        self.stats = {"g_updates": 0, "d_updates": 0, "stat_updates": 0}
 
 
 def last_valid_teacher(img_y: np.ndarray) -> np.ndarray:
@@ -102,46 +106,55 @@ def gan_step(state: TrainState, gan: GANState, batch, losses,
     each loss, a mean over the batch, counts as its rank's share of the
     global mean, and G's and D's gradients are summed over the ranks;
     both Adams stay replicated."""
-    actor, bundle = state.actor, gan.bundle
-    actor.train()
-    bundle.train()
-    src, gt = batch["img_x"], batch["gt_img"]
-    pseudo = batch.get("pseudo_real")
-    # a rank's share of a global mean over equal row blocks
-    share = 1.0 / mesh.data_size()
-    # the text condition from the encoder's hidden state, held fixed
-    with torch.no_grad():
-        enc_h = actor.lang_encoder(batch["x"])[1][0]
-        cond = bundle.cond_encoder(enc_h)
+    with span("train.step", kind="gan", step=state.step + 1):
+        actor, bundle = state.actor, gan.bundle
+        actor.train()
+        bundle.train()
+        src, gt = batch["img_x"], batch["gt_img"]
+        pseudo = batch.get("pseudo_real")
+        # a rank's share of a global mean over equal row blocks
+        share = 1.0 / mesh.data_size()
+        with span("train.gan.gen"):
+            with span("train.forward"):
+                # the text condition from the encoder's hidden state,
+                # held fixed
+                with torch.no_grad():
+                    enc_h = actor.lang_encoder(batch["x"])[1][0]
+                    cond = bundle.cond_encoder(enc_h)
+                noise_fn, _ = global_draws(generator, noise_fn)
+                out = actor.episode(batch["x"], src, sample=True,
+                                    generator=generator, noise_fn=noise_fn,
+                                    fused_exec=fused_exec)
+                fake = select_end_images(out["imgs"], out["ops"])
+                bundle.requires_grad_(False)   # G's loss: the actor only
+                try:
+                    ld = losses(bundle.netD, src, fake, gt, cond,
+                                pseudo_real=pseudo, parts="g")
+                finally:
+                    bundle.requires_grad_(True)
+                g_total = ld["G_GAN"] + ld["G_GAN_Feat"] + ld["G_VGG"]
+            adam_step(gan.g_opt, gan.g_params,
+                      g_total * share if mesh.active() else g_total)
+            gan.stats["g_updates"] += 1
 
-    noise_fn, _ = global_draws(generator, noise_fn)
-    out = actor.episode(batch["x"], src, sample=True, generator=generator,
-                        noise_fn=noise_fn, fused_exec=fused_exec)
-    fake = select_end_images(out["imgs"], out["ops"])
-    bundle.requires_grad_(False)       # G's loss reaches the actor only
-    try:
-        ld = losses(bundle.netD, src, fake, gt, cond, pseudo_real=pseudo,
-                    parts="g")
-    finally:
-        bundle.requires_grad_(True)
-    g_total = ld["G_GAN"] + ld["G_GAN_Feat"] + ld["G_VGG"]
-    adam_step(gan.g_opt, gan.g_params,
-              g_total * share if mesh.active() else g_total)
-
-    ld2 = losses(bundle.netD, src, fake.detach(), gt,
-                 bundle.cond_encoder(enc_h), pseudo_real=pseudo, parts="d")
-    d_total = 0.5 * (ld2["D_fake"] + ld2["D_real"])
-    adam_step(gan.d_opt, gan.d_params,
-              d_total * share if mesh.active() else d_total)
-
-    bundle.update_stats(torch.cat([src, gt], dim=1), enc_h)
-    state.step += 1
-    metrics = {"G_loss": g_total, "D_loss": d_total,
-               "G_GAN": ld["G_GAN"], "G_GAN_Feat": ld["G_GAN_Feat"],
-               "D_real": ld2["D_real"], "D_fake": ld2["D_fake"]}
-    if mesh.active():
-        metrics = {k: v * share for k, v in metrics.items()}
-    return global_metrics(metrics)
+        with span("train.gan.disc"):
+            with span("train.forward"):
+                ld2 = losses(bundle.netD, src, fake.detach(), gt,
+                             bundle.cond_encoder(enc_h), pseudo_real=pseudo,
+                             parts="d")
+                d_total = 0.5 * (ld2["D_fake"] + ld2["D_real"])
+            adam_step(gan.d_opt, gan.d_params,
+                      d_total * share if mesh.active() else d_total)
+            gan.stats["d_updates"] += 1
+            bundle.update_stats(torch.cat([src, gt], dim=1), enc_h)
+            gan.stats["stat_updates"] += 1
+        state.step += 1
+        metrics = {"G_loss": g_total, "D_loss": d_total,
+                   "G_GAN": ld["G_GAN"], "G_GAN_Feat": ld["G_GAN_Feat"],
+                   "D_real": ld2["D_real"], "D_fake": ld2["D_fake"]}
+        if mesh.active():
+            metrics = {k: v * share for k, v in metrics.items()}
+        return global_metrics(metrics)
 
 
 def train_parser() -> argparse.ArgumentParser:
