@@ -254,7 +254,20 @@ class Actor(nn.Module):
             discrete mode a 4th element, the bin log-probs
             (B, T-2, 8, discrete_step).
         """
-        enc_out, enc_hidden, enc_valid = self.lang_encoder(x)
+        return self.teacher_forced(
+            self.lang_encoder(x), y, img_x, img_y, with_images=with_images,
+            mask=mask, step_masks=step_masks, per_step_bn=per_step_bn)
+
+    def teacher_forced(self, encoded, y, img_x, img_y,
+                       with_images: bool = False, mask=None, step_masks=None,
+                       per_step_bn: bool = False):
+        """`supervised` from the request encoder's outputs on: `encoded`
+        is `lang_encoder(x)`'s (outputs, (h, c), valid); the other
+        arguments and the result are `supervised`'s. Its shapes follow the
+        batch alone and it reads nothing back from the device: the
+        supervised training step replays it, its losses and their
+        backward as a CUDA graph (`train.loop`)."""
+        enc_out, enc_hidden, enc_valid = encoded
         enc_valid = self._attn_mask(enc_valid)
         carry = self.decoder.init_carry(enc_hidden)
         n_dec = y.shape[1] - 1

@@ -147,17 +147,36 @@ def discrete_param_grid(cfg, num: int = 10):
     return grid, supported
 
 
+_GRIDS = {}              # discrete_param_grid's tensors by device, made once
+
+
+def device_grid(cfg, num: int, device):
+    """`discrete_param_grid(cfg, num)` as tensors on `device`, made there
+    once, outside inference mode, so that a training step can save them
+    for its backward after serving made them; never written in place.
+    Copying them from pageable host memory on every call would be a
+    host-to-device copy that a CUDA graph's capture forbids."""
+    key = (torch.device(device), cfg, num)
+    got = _GRIDS.get(key)
+    if got is None:
+        grid, supported = discrete_param_grid(cfg, num)
+        with torch.inference_mode(False):
+            got = (torch.as_tensor(grid, device=key[0]),
+                   torch.as_tensor(supported, device=key[0]))
+        _GRIDS[key] = got
+    return got
+
+
 def gt_param_bins(gt_scalar, op_exec_idx, cfg, num: int = 10):
     """The nearest grid bin of each ground-truth scalar under its op's
     grid (the first of equally near bins). Returns (bins, supported):
     entries of special tokens (index < 0) and of unsupported ops are
     unsupported."""
-    grid, supported = discrete_param_grid(cfg, num)
-    dev = gt_scalar.device
+    grid, supported = device_grid(cfg, num, gt_scalar.device)
     idx = torch.clamp(op_exec_idx, 0, N_OPS - 1).long()
-    d = (torch.as_tensor(grid, device=dev)[idx] - gt_scalar[..., None]).abs()
+    d = (grid[idx] - gt_scalar[..., None]).abs()
     bins = torch.argmin(d, dim=-1)
-    sup = torch.as_tensor(supported, device=dev)[idx] & (op_exec_idx >= 0)
+    sup = supported[idx] & (op_exec_idx >= 0)
     return bins, sup
 
 
@@ -177,7 +196,7 @@ def select_discrete_params(raw, cont_params, sample: bool,
         `gumbel` ((B, N_OPS, num) standard Gumbel draws) is fed in.
     :return: (params (B, N_OPS, 24), bin log-probs (B, N_OPS, num)).
     """
-    grid, supported = discrete_param_grid(cfg, num)
+    grid, supported = device_grid(cfg, num, raw.device)
     dev = raw.device
     logp = F.log_softmax(raw[:, :, :num], dim=-1)
     if sample:
@@ -191,11 +210,10 @@ def select_discrete_params(raw, cont_params, sample: bool,
         ind = torch.argmax(gumbel + torch.log(probs.detach() + 1e-30), dim=-1)
     else:
         ind = torch.argmax(logp, dim=-1)
-    vals = torch.as_tensor(grid, device=dev)[
-        torch.arange(N_OPS, device=dev)[None], ind]          # (B, N_OPS)
+    vals = grid[torch.arange(N_OPS, device=dev)[None], ind]  # (B, N_OPS)
     disc = torch.zeros_like(cont_params)
     disc[:, :, 0] = vals
-    sup = torch.as_tensor(supported, device=dev)[None, :, None]
+    sup = supported[None, :, None]
     return torch.where(sup, disc, cont_params), logp
 
 
