@@ -266,7 +266,7 @@ class Actor(nn.Module):
         arguments and the result are `supervised`'s. Its shapes follow the
         batch alone and it reads nothing back from the device: the
         supervised training step replays it, its losses and their
-        backward as a CUDA graph (`train.loop`)."""
+        backward as a CUDA graph (`utils.graphs`)."""
         enc_out, enc_hidden, enc_valid = encoded
         enc_valid = self._attn_mask(enc_valid)
         carry = self.decoder.init_carry(enc_hidden)
@@ -365,7 +365,7 @@ class Actor(nn.Module):
         `lang_encoder(x)`'s (outputs, (h, c), valid); the other arguments
         and the result are `episode`'s. Greedy, its shapes follow the rows
         and the image alone and it reads nothing back from the device: the
-        serving engine replays it as a CUDA graph (`serve._DecodeGraph`)."""
+        serving engine replays it as a CUDA graph (`utils.graphs`)."""
         cfg = self.cfg
         b = img_x.shape[0]
         device = img_x.device

@@ -37,12 +37,12 @@ request lengths go to the encoder from the host), so the host stacks
 batch k+1 while the card runs batch k.
 
 On a CUDA device the decode after the request encoder (`Actor.rollout`,
-about 1,700 operations for five steps) replays a CUDA graph, one for
-each device and decode input shape, so one for each row count at the
-probe (`_DecodeGraph`). The encoder stays eager: its packing takes each
-request's length from the host. So do the probe resize and the execute.
-The first sight of a shape runs eagerly, which serves its rows, and then
-captures; `stats` counts `decode_calls` (row blocks decoded),
+about 1,700 operations for five steps) replays a CUDA graph through
+`utils.graphs`, one for each device and decode input shape, so one for
+each row count at the probe. The encoder stays eager: its packing takes
+each request's length from the host. So do the probe resize and the
+execute. The first sight of a shape runs eagerly, which serves its rows,
+and then captures; `stats` counts `decode_calls` (row blocks decoded),
 `decode_graph_captures` and `decode_graph_replays`. On the CPU the
 decode runs eagerly.
 
@@ -60,6 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import itertools
 import threading
 import time
@@ -79,6 +80,7 @@ from t2onet_tpu_torch.ops.chain import fused_chain_sharded, vocab_ops_to_slots
 from t2onet_tpu_torch.ops.operators import OP_NAMES
 from t2onet_tpu_torch.parallel.mesh import Mesh, as_mesh, shard_rows
 from t2onet_tpu_torch.precision import set_cuda_precision
+from t2onet_tpu_torch.utils.graphs import GraphCache
 from t2onet_tpu_torch.utils.profiling import span
 
 END_ID = 2
@@ -135,46 +137,11 @@ class _InFlight:
     events: List[torch.cuda.Event]
 
 
-class _DecodeGraph:
-    """A CUDA graph of the greedy `Actor.rollout` of one decode input
-    shape on one device, with its static inputs (the encoder's outputs,
-    (h, c), the valid mask and the decode input) and outputs (ops,
-    params). Captured after an eager run of the same shape on the same
-    stream (cuDNN's and cuBLAS's first-use work done); in thread-local
-    mode, so the IO threads' event waits may go on meanwhile.
-
-    The graph reads the actor's weights and buffers where they were at
-    the capture. Moving the actor again moves some: `.to()`, even onto
-    its own device (another engine over the same actor), flattens the
-    LSTMs' weights into new storage and frees the old. `moved()` tells."""
-
-    def __init__(self, actor, encoded, dec_in, pool, stream):
-        self.weights = list(itertools.chain(actor.parameters(),
-                                            actor.buffers()))
-        self.where = [t.data_ptr() for t in self.weights]
-        self.replays = 0
-        enc_out, (h, c), valid = encoded
-        self.inputs = [t.clone() for t in (enc_out, h, c, valid, dec_in)]
-        enc_out, h, c, valid, dec_in = self.inputs
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            out = actor.rollout((enc_out, (h, c), valid), dec_in)
-        self.ops, self.params = out["ops"], out["params"]
-
-    def moved(self) -> bool:
-        """Whether a weight or buffer lives elsewhere than at the capture."""
-        return [t.data_ptr() for t in self.weights] != self.where
-
-    def __call__(self, encoded, dec_in):
-        """Copy the inputs in, replay, and clone the outputs: the next
-        replay (the next row block on this device) overwrites them."""
-        enc_out, (h, c), valid = encoded
-        for static, t in zip(self.inputs, (enc_out, h, c, valid, dec_in)):
-            static.copy_(t)
-        self.graph.replay()
-        self.replays += 1
-        return self.ops.clone(), self.params.clone()
+def _rollout(actor, enc_out, h, c, valid, dec_in):
+    """The greedy decode after the request encoder, (ops, params): what
+    the decode graph captures."""
+    out = actor.rollout((enc_out, (h, c), valid), dec_in)
+    return out["ops"], out["params"]
 
 
 class ServingEngine:
@@ -240,12 +207,7 @@ class ServingEngine:
         self.io_threads = max(1, io_threads)
         self._io_pool = None
         self._streams = {}              # a CUDA stream a device, at first use
-        # the decode's CUDA graphs by `_graph_key`, the memory pool that
-        # a device's graphs share, and a lock that keeps one thread at a
-        # time on the graphs and their static buffers
-        self._graphs: Dict[tuple, _DecodeGraph] = {}
-        self._graph_pools = {}
-        self._graph_lock = threading.Lock()
+        self.graphs = GraphCache()      # the decode's, by `_graph_key`
         self._lock = threading.Lock()
         self._queue: List[_Pending] = []
         # requests and micro-batches answered, host seconds launching and
@@ -259,37 +221,29 @@ class ServingEngine:
         self._batch_ids = itertools.count()
 
     # -- stages -----------------------------------------------------------
-    def _decode(self, x, dec_in, host_lengths, device):
+    def _decode(self, x, dec_in, host_lengths, device, sp=None):
         """The greedy rollout of one row block on `device`: (ops (rows, S),
-        params (rows, S, 24)). The request encoder runs eagerly; on a
-        CUDA device the rest replays the graph of its `_graph_key`, or at
-        the key's first sight, or once the actor's weights have moved,
-        runs eagerly and then captures one."""
+        params (rows, S, 24)). The request encoder runs eagerly; on a CUDA
+        device the rest replays the graph of its `_graph_key`, or at the
+        key's first sight, or once the actor's weights have moved, runs
+        eagerly and then captures one (`utils.graphs`). The span `sp`, if
+        given, says whether this call replayed (`graphed`)."""
         actor = self.replicas[device]
-        encoded = actor.lang_encoder(x, host_lengths)
-        key = self._graph_key(device, dec_in)
-        counter = None
-        if key is None:
-            out = actor.rollout(encoded, dec_in)
-            ops, params = out["ops"], out["params"]
-        else:
-            with self._graph_lock:
-                graph = self._graphs.get(key)
-                if graph is not None and not graph.moved():
-                    ops, params = graph(encoded, dec_in)
-                    counter = "decode_graph_replays"
-                else:
-                    out = actor.rollout(encoded, dec_in)
-                    ops, params = out["ops"], out["params"]
-                    pool = self._graph_pools.setdefault(
-                        device, torch.cuda.graph_pool_handle())
-                    self._graphs[key] = _DecodeGraph(
-                        actor, encoded, dec_in, pool, self._stream(device))
-                    counter = "decode_graph_captures"
+        enc_out, (h, c), valid = actor.lang_encoder(x, host_lengths)
+        inputs = (enc_out, h, c, valid, dec_in)
+        rollout = functools.partial(_rollout, actor)
+        (ops, params), mode = self.graphs.run(
+            self._graph_key(device, dec_in), actor, rollout,
+            eager=lambda: (rollout(*inputs), inputs),
+            replay=lambda graph: graph(*inputs))
         with self._lock:
             self.stats["decode_calls"] += 1
-            if counter is not None:
-                self.stats[counter] += 1
+            if mode == "replay":
+                self.stats["decode_graph_replays"] += 1
+            elif mode == "capture":
+                self.stats["decode_graph_captures"] += 1
+        if sp is not None:
+            sp.set(graphed=mode == "replay")
         return ops, params
 
     @staticmethod
@@ -495,9 +449,7 @@ class ServingEngine:
                 with span("serve.launch.decode") as sp:
                     dec_in = self._decode_input(stack_d, valids_p[r])
                     o, p = self._decode(tokens[r].to(d, non_blocking=True),
-                                        dec_in, host_lengths[r], d)
-                    graph = self._graphs.get(self._graph_key(d, dec_in))
-                    sp.set(graphed=graph is not None and graph.replays > 0)
+                                        dec_in, host_lengths[r], d, sp)
                 wires.append(self._wire(stack_d))
                 ops.append(o)
                 params.append(p)

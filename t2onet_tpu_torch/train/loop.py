@@ -43,12 +43,12 @@ group) a supervised step runs the request encoder eagerly (its packing
 takes each request's length from the host) and replays everything after
 it as one CUDA graph: the teacher-forced pass, the losses and their
 backward down to the gradients of the parameters and of the encoder's
-outputs (`_SupervisedGraph`), one graph for each device, batch shape and
-mode. The encoder's backward, fed those gradients, the zero fills and
-Adam stay eager. The first sight of a shape runs eagerly and then
-captures. `TrainState.stats` counts `supervised_steps`, and of them
-`supervised_graph_replays`, and `supervised_graph_captures`. Elsewhere
-the step runs eagerly.
+outputs, captured and replayed through `utils.graphs`, one graph for
+each device, batch shape and mode. The encoder's backward, fed those
+gradients, the zero fills and Adam stay eager. The first sight of a
+shape runs the whole step eagerly and then captures. `TrainState.stats`
+counts `supervised_steps`, and of them `supervised_graph_replays`, and
+`supervised_graph_captures`. Elsewhere the step runs eagerly.
 
 While spans are recorded (`utils.profiling`) a step is `train.step` (its
 kind and number), holding `train.forward` (the actor's forward and the
@@ -60,7 +60,7 @@ enqueues them.
 
 from __future__ import annotations
 
-import itertools
+import functools
 
 import torch
 
@@ -69,6 +69,7 @@ from t2onet_tpu_torch.ops import bank
 from t2onet_tpu_torch.ops.color import abs_
 from t2onet_tpu_torch.ops.operators import OP_NAMES
 from t2onet_tpu_torch.parallel import mesh
+from t2onet_tpu_torch.utils.graphs import GraphCache
 from t2onet_tpu_torch.utils.profiling import span
 
 
@@ -100,10 +101,7 @@ class TrainState:
                                     betas=(0.9, 0.999), eps=1e-8)
         self.step = 0
         self._gathered = None          # (step, the unsharded Adam state)
-        # the supervised step's CUDA graphs by `_graph_key`, and the
-        # capture stream and memory pool that a device's graphs share
-        self._graphs = {}
-        self._capture = {}
+        self.graphs = GraphCache()      # the supervised step's
         # supervised steps taken; of them replays of a CUDA graph; and
         # eager steps followed by a capture (first sight of a key, or the
         # weights moved)
@@ -294,75 +292,34 @@ def _teacher_forced_losses(actor, encoded, batch, per_step_bn):
     return op_loss + param_loss, op_loss, param_loss
 
 
-class _SupervisedGraph:
-    """A CUDA graph of a supervised step after the request encoder, for
-    one batch shape and mode on one device: the teacher-forced pass
-    (`Actor.teacher_forced`), its losses and their backward, down to the
-    gradients of every parameter it reaches and of the encoder's outputs
-    and (h, c). Static inputs: the encoder's outputs, (h, c) and valid
-    mask, and the batch's y, img_x, img_y and gt_params; static outputs:
-    the three losses, and the gradients stacked into one buffer.
-
-    Captured after an eager step of the same key on the same stream
-    (cuDNN's and cuBLAS's first-use work done); in thread-local mode, so
-    that the prefetcher's thread may upload batches meanwhile. The
-    capture runs nothing: the BatchNorm running averages move once a
-    replay, as in an eager step, and never at the capture.
-
-    The graph reads the actor's weights and buffers where they were at
-    the capture. Moving the actor again moves some (`.to()` flattens the
-    LSTMs' weights into new storage): `moved()` tells."""
-
-    def __init__(self, state, encoded, batch, per_step_bn, pool, stream):
-        actor = state.actor
-        self.weights = list(itertools.chain(actor.parameters(),
-                                            actor.buffers()))
-        self.where = [t.data_ptr() for t in self.weights]
-        enc_out, (h, c), valid = encoded
-        self.inputs = [t.detach().clone() for t in
-                       (enc_out, h, c, valid) + _batch_inputs(batch)]
-        enc_out, h, c, valid = self.inputs[:4]
-        for t in (enc_out, h, c):
-            t.requires_grad_()
-        wrt = list(state.params) + [enc_out, h, c]
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            losses = _teacher_forced_losses(
-                actor, (enc_out, (h, c), valid),
-                dict(zip(_BATCH_KEYS, self.inputs[4:])), per_step_bn)
-            grads = torch.autograd.grad(losses[0], wrt, allow_unused=True)
-            # indices into state.params, then len(params) + 0, 1, 2 for
-            # the encoder's outputs, h and c
-            self.reached = [i for i, g in enumerate(grads) if g is not None]
-            self.losses = torch.stack([t.detach() for t in losses])
-            self.grads = torch.cat([grads[i].reshape(-1)
-                                    for i in self.reached])
-        self.shapes = [wrt[i].shape for i in self.reached]
-        self.sizes = [wrt[i].numel() for i in self.reached]
-
-    def moved(self) -> bool:
-        """Whether a weight or buffer lives elsewhere than at the capture."""
-        return [t.data_ptr() for t in self.weights] != self.where
-
-    def __call__(self, encoded, batch):
-        """Copy the inputs in, replay, and clone the outputs, which the
-        next replay overwrites: (the losses (3,), [(index as in `reached`,
-        gradient)])."""
-        enc_out, (h, c), valid = encoded
-        with torch.no_grad():
-            for static, t in zip(self.inputs, (enc_out, h, c, valid)
-                                 + _batch_inputs(batch)):
-                static.copy_(t)
-        self.graph.replay()
-        flat = self.grads.clone()
-        grads = [g.view(s) for g, s in zip(flat.split(self.sizes),
-                                           self.shapes)]
-        return self.losses.clone(), list(zip(self.reached, grads))
+def _captured_losses(state, per_step_bn, enc_out, h, c, valid, *batch):
+    """What the supervised graph captures: the teacher-forced pass from
+    the encoder's outputs (`Actor.teacher_forced`), its losses and their
+    backward down to the gradients of every parameter it reaches and of
+    the encoder's outputs and (h, c). Returns (the three losses, those
+    gradients flat in one buffer, `reached`: each one's index and shape).
+    The capture runs nothing: the BatchNorm running averages move once a
+    replay, as in an eager step, and never at the capture."""
+    for t in (enc_out, h, c):
+        t.requires_grad_()
+    # indices into state.params, then len(params) + 0, 1, 2 for the
+    # encoder's outputs, h and c
+    wrt = list(state.params) + [enc_out, h, c]
+    losses = _teacher_forced_losses(state.actor, (enc_out, (h, c), valid),
+                                    dict(zip(_BATCH_KEYS, batch)),
+                                    per_step_bn)
+    grads = torch.autograd.grad(losses[0], wrt, allow_unused=True)
+    reached = [(i, wrt[i].shape) for i, g in enumerate(grads)
+               if g is not None]
+    return (torch.stack([t.detach() for t in losses]),
+            torch.cat([grads[i].reshape(-1) for i, _ in reached]), reached)
 
 
-def _batch_inputs(batch):
-    return tuple(batch[k] for k in _BATCH_KEYS)
+def _graph_inputs(encoded, batch):
+    """The supervised graph's inputs: the encoder's outputs, (h, c) and
+    valid mask, and the batch's y, img_x, img_y and gt_params."""
+    enc_out, (h, c), valid = encoded
+    return (enc_out, h, c, valid) + tuple(batch[k] for k in _BATCH_KEYS)
 
 
 def _graph_key(state: TrainState, batch, per_step_bn: bool):
@@ -375,32 +332,34 @@ def _graph_key(state: TrainState, batch, per_step_bn: bool):
         return None
     return ((x.device, per_step_bn, state.actor.cfg.discrete_param)
             + tuple((tuple(t.shape), t.dtype)
-                    for t in (x,) + _batch_inputs(batch)))
+                    for t in [x] + [batch[k] for k in _BATCH_KEYS]))
 
 
 def _eager_supervised(state: TrainState, batch, per_step_bn: bool):
-    """The step operation by operation: (its metrics, the encoder's
-    outputs)."""
+    """The step operation by operation: (its metrics, the graph's
+    inputs)."""
     with span("train.forward", graphed=False):
         encoded = state.actor.lang_encoder(batch["x"])
         losses = _teacher_forced_losses(state.actor, encoded, batch,
                                         per_step_bn)
     state.apply_gradients(losses[0])
-    return dict(zip(_METRICS, losses)), encoded
+    return dict(zip(_METRICS, losses)), _graph_inputs(encoded, batch)
 
 
-def _replayed_supervised(state: TrainState, graph: _SupervisedGraph, batch):
+def _replayed_supervised(state: TrainState, graph, batch):
     """The step with everything after the encoder replayed: the replay's
     gradients set as the parameters' and fed to the encoder's backward."""
     with span("train.forward", graphed=True):
         encoded = state.actor.lang_encoder(batch["x"])
-        losses, grads = graph(encoded, batch)
+        losses, flat, reached = graph(*_graph_inputs(encoded, batch))
     with span("train.backward"):
         state.opt.zero_grad(set_to_none=True)
         n = len(state.params)
         outs = (encoded[0],) + tuple(encoded[1])
+        grads = flat.split([shape.numel() for _, shape in reached])
         fed = []
-        for i, g in grads:
+        for (i, shape), g in zip(reached, grads):
+            g = g.view(shape)
             if i < n:
                 state.params[i].grad = g
             else:
@@ -413,26 +372,6 @@ def _replayed_supervised(state: TrainState, graph: _SupervisedGraph, batch):
     return dict(zip(_METRICS, losses))
 
 
-def _captured_supervised(state: TrainState, key, batch, per_step_bn: bool):
-    """The eager step, then a capture of its key, both on the device's
-    capture stream, which first waits for the caller's stream and which
-    the caller's stream then waits for."""
-    device = key[0]
-    state._graphs.pop(key, None)
-    if device not in state._capture:
-        state._capture[device] = (torch.cuda.Stream(device),
-                                  torch.cuda.graph_pool_handle())
-    stream, pool = state._capture[device]
-    caller = torch.cuda.current_stream(device)
-    stream.wait_stream(caller)
-    with torch.cuda.stream(stream):
-        metrics, encoded = _eager_supervised(state, batch, per_step_bn)
-        state._graphs[key] = _SupervisedGraph(state, encoded, batch,
-                                              per_step_bn, pool, stream)
-    caller.wait_stream(stream)
-    return metrics
-
-
 def supervised_step(state: TrainState, batch, per_step_bn: bool = False):
     """batch: x (B,L), y (B,T), img_x (B,3,H,W), img_y (B,T-1,3,H,W),
     gt_params (B,T-2,24), all on the actor's device (under data
@@ -440,19 +379,19 @@ def supervised_step(state: TrainState, batch, per_step_bn: bool = False):
     ResNet forward per decode step (`Actor.supervised`). On a CUDA
     device at world size 1 everything after the request encoder replays
     the graph of its `_graph_key`, or at the key's first sight, or once
-    the actor's weights have moved, runs eagerly and then captures one."""
+    the actor's weights have moved, the step runs eagerly and then
+    captures one (`utils.graphs`)."""
     with span("train.step", kind="supervised", step=state.step + 1):
         state.actor.train()
         state.stats["supervised_steps"] += 1
-        key = _graph_key(state, batch, per_step_bn)
-        graph = state._graphs.get(key) if key is not None else None
-        if key is None:
-            metrics, _ = _eager_supervised(state, batch, per_step_bn)
-        elif graph is not None and not graph.moved():
-            metrics = _replayed_supervised(state, graph, batch)
+        metrics, mode = state.graphs.run(
+            _graph_key(state, batch, per_step_bn), state.actor,
+            functools.partial(_captured_losses, state, per_step_bn),
+            eager=lambda: _eager_supervised(state, batch, per_step_bn),
+            replay=lambda graph: _replayed_supervised(state, graph, batch))
+        if mode == "replay":
             state.stats["supervised_graph_replays"] += 1
-        else:
-            metrics = _captured_supervised(state, key, batch, per_step_bn)
+        elif mode == "capture":
             state.stats["supervised_graph_captures"] += 1
         return global_metrics(metrics)
 

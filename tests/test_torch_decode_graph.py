@@ -1,5 +1,5 @@
-"""The serving decode as a CUDA graph (`serve._DecodeGraph`) and what it
-leaves as it was.
+"""The serving decode as a CUDA graph (through `utils.graphs`) and what
+it leaves as it was.
 
 On the CPU, where the decode runs eagerly: the engine's decode counters
 (row blocks counted, no graph captured or replayed) and its programs,
@@ -15,7 +15,8 @@ cell's widths and 128 px probe: graphed programs equal to the eager
 `Actor.episode`'s for every row count 1..8, two launches in flight each
 with its own program, a mesh naming one card twice giving each row block
 its own, after a warm-up one capture per key seen and a replay for
-every later call, and a capture again once the actor's weights moved."""
+every later call, a capture again once the actor's weights moved, and
+the decode span's `graphed` true on replays only."""
 
 import numpy as np
 import pytest
@@ -112,7 +113,7 @@ def test_cpu_engine_counts_row_blocks_and_captures_nothing(mesh_size):
     st = engine.stats_snapshot()
     assert st["decode_calls"] == len(blocks) == (3 if mesh_size == 1 else 6)
     assert st["decode_graph_replays"] == st["decode_graph_captures"] == 0
-    assert engine._graphs == {}
+    assert engine.graphs.values() == []
     served = set()
     for blk in blocks:
         ops, params = _eager(engine.actor, engine, [images[i] for i in blk],
@@ -369,7 +370,7 @@ def test_warm_up_captures_each_key_and_replays_after(card, full_actor):
         engine.edit_batch(_images([(128, 128)] * rows, seed=rows),
                           REQUESTS[:rows])
     st = engine.stats_snapshot()
-    assert st["decode_graph_captures"] == len(engine._graphs) == 8
+    assert st["decode_graph_captures"] == len(engine.graphs.values()) == 8
     assert st["decode_calls"] == 8 and st["decode_graph_replays"] == 0
     batcher = MicroBatcher(engine, linger_ms=2.0).start()
     try:
@@ -397,18 +398,38 @@ def test_a_second_engine_on_the_actor_makes_the_first_recapture(card,
     first = _engine(full_actor, card, max_batch=4)
     images, requests = _images([(128, 128)] * 4, seed=4), REQUESTS[:4]
     first.edit_batch(images, requests)           # captures rows = 4
-    (graph,) = first._graphs.values()
-    assert not graph.moved()
+    (graph,) = first.graphs.values()
+    assert not graph.weights.moved()
     second = _engine(full_actor, card, max_batch=4)
-    assert graph.moved()
+    assert graph.weights.moved()
     second.edit_batch(images, requests)
     (rec,) = _launch(first, images, requests)
     first.readback([rec])
     st = first.stats_snapshot()
     assert st["decode_graph_captures"] == 2 and st["decode_graph_replays"] == 0
-    (regraphed,) = first._graphs.values()
-    assert regraphed is not graph and not regraphed.moved()
+    (regraphed,) = first.graphs.values()
+    assert regraphed is not graph and not regraphed.weights.moved()
     ops, params = _programs(rec)
     want_ops, want_params = _eager(first.actor, first, images, requests, card)
     assert torch.equal(ops, want_ops)
     assert torch.equal(params, want_params)
+
+
+@pytest.mark.card
+def test_decode_span_is_graphed_on_replays_only(card, full_actor):
+    """Three micro-batches of one row count: the first captures, the
+    other two replay, and each decode span says so."""
+    engine = _engine(full_actor, card, max_batch=4)
+    images = _images([(128, 128)] * 4, seed=6)
+    profiling.start_spans()
+    try:
+        for _ in range(3):
+            engine.edit_batch(images, REQUESTS[:4])
+    finally:
+        spans, dropped = profiling.take_spans()
+    decodes = [s for s in spans if s.name == "serve.launch.decode"]
+    assert dropped == 0
+    assert [s.attrs["graphed"] for s in decodes] == [False, True, True]
+    st = engine.stats_snapshot()
+    assert st["decode_graph_captures"] == 1
+    assert st["decode_graph_replays"] == 2

@@ -1,5 +1,5 @@
-"""The supervised training step as a CUDA graph (`train.loop`'s
-`_SupervisedGraph`) and what it leaves as it was.
+"""The supervised training step as a CUDA graph (`train.loop` through
+`utils.graphs`) and what it leaves as it was.
 
 On the CPU, at tiny widths, in the default, the discrete and the
 per-step-BN modes: the request encoder followed by
@@ -20,6 +20,7 @@ that changes no parameter, buffer or Adam state; a recapture after the
 weights moved; a second batch shape with a graph of its own; the
 counters."""
 
+import functools
 import types
 
 import numpy as np
@@ -34,7 +35,7 @@ from t2onet_tpu_torch.parallel import mesh
 from t2onet_tpu_torch.train import loop
 from t2onet_tpu_torch.train.loop import (TrainState, episode_step,
                                          supervised_step)
-from t2onet_tpu_torch.utils import profiling
+from t2onet_tpu_torch.utils import graphs, profiling
 
 torch.set_num_threads(2)
 
@@ -177,7 +178,7 @@ def test_cpu_steps_run_eagerly_and_count():
     assert state.stats == {"supervised_steps": 2,
                            "supervised_graph_replays": 0,
                            "supervised_graph_captures": 0}
-    assert state._graphs == {} and state.step == 3
+    assert state.graphs.values() == [] and state.step == 3
 
 
 def test_active_mesh_steps_run_eagerly(monkeypatch):
@@ -193,7 +194,7 @@ def test_active_mesh_steps_run_eagerly(monkeypatch):
     assert got.stats == {"supervised_steps": 1,
                          "supervised_graph_replays": 0,
                          "supervised_graph_captures": 0}
-    assert got._graphs == {}
+    assert got.graphs.values() == []
     for k in m_want:
         torch.testing.assert_close(m_got[k], m_want[k], rtol=1e-6, atol=0)
     # the global BatchNorm's E[x^2] - E[x]^2 against the local one's
@@ -362,14 +363,17 @@ def test_capture_changes_no_state(card):
     encoded = state.actor.lang_encoder(b["x"])
     stream = torch.cuda.Stream(card)
     stream.wait_stream(torch.cuda.current_stream(card))
-    graph = loop._SupervisedGraph(state, encoded, b, False,
-                                  torch.cuda.graph_pool_handle(), stream)
+    graph = graphs.Graph(state.actor,
+                         functools.partial(loop._captured_losses, state,
+                                           False),
+                         loop._graph_inputs(encoded, b),
+                         torch.cuda.graph_pool_handle(), stream)
     torch.cuda.synchronize()
     after = _snapshot(state)
     assert sorted(after) == sorted(before)
     for k in before:
         assert torch.equal(after[k], before[k]), k
-    assert not graph.moved()
+    assert not graph.weights.moved()
     assert all(p.grad is not None for p in state.params)
 
 
@@ -384,17 +388,17 @@ def test_moved_weights_force_a_recapture(card, monkeypatch):
     losses = []
     for i, host in enumerate(batches):
         if i == 2:
-            (graph,) = state._graphs.values()
-            assert not graph.moved()
+            (graph,) = state.graphs.values()
+            assert not graph.weights.moved()
             state.actor.to(card)
-            assert graph.moved()
+            assert graph.weights.moved()
         losses.append(supervised_step(state, device_put_batch(host, card))
                       ["loss"])
     assert state.stats == {"supervised_steps": 3,
                            "supervised_graph_replays": 1,
                            "supervised_graph_captures": 2}
-    (regraphed,) = state._graphs.values()
-    assert regraphed is not graph and not regraphed.moved()
+    (regraphed,) = state.graphs.values()
+    assert regraphed is not graph and not regraphed.weights.moved()
     with monkeypatch.context() as m:
         m.setattr(loop, "_graph_key", lambda *a: None)
         eager = TrainState(_card_actor(mode, card))
@@ -425,7 +429,7 @@ def test_a_second_shape_captures_its_own_graph(card, monkeypatch):
 
     got, state = losses(True)
     want, _ = losses(False)
-    assert len(state._graphs) == 2
+    assert len(state.graphs.values()) == 2
     assert state.stats == {"supervised_steps": 6,
                            "supervised_graph_replays": 4,
                            "supervised_graph_captures": 2}
