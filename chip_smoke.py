@@ -6,6 +6,7 @@ on one CUDA card.
     python3 chip_smoke.py --phases gan,gan_plan,fid,pix2pixhd
     python3 chip_smoke.py --phases dp,mesh_serve,mesh_plan
     python3 chip_smoke.py --phases ops_extra,convert,supervisor,tp_heads
+    python3 chip_smoke.py --phases inpaint,demo_plan,edges
 
 The second form runs the named phases alone after phases 1-3 (the
 eval's checkpoint that demo_plan reads is written without the eval) and
@@ -173,7 +174,9 @@ line. Phases (any failure exits non-zero): (any failure exits non-zero):
    image from phase 12's checkpoint (B1 once per rollout step, card
    against CPU), `--program` with a mask and each filler at 256², card
    against CPU within one level of the 8-bit images the demo encodes
-   (the decoded JPEGs' gap printed); `cli.plan_gier --inpaint_ckpt` on
+   (the decoded JPEGs' gap printed), EdgeConnect's edges on the card one
+   hysteresis launch an edge map call and none on the CPU or with the
+   gated filler; `cli.plan_gier --inpaint_ckpt` on
    the 4 first shapeAlign train pairs with an inpaint mask at phase 15's
    128 px: every filler call of the card's search again on the CPU from
    the same input (outputs within 1e-4), and 2 of the pairs planned on
@@ -253,7 +256,17 @@ line. Phases (any failure exits non-zero): (any failure exits non-zero):
    fused episode step at full width on b64 x 128²: each rank against one
    process within phase 9's bounds, B1 5 + B3 5 a rank, each rank's Adam
    holding moments for its own heads only; `python -m t2onet_tpu_torch
-   help`.
+   help`;
+36. edges: the hysteresis kernel (csrc/hysteresis.cu) at the EdgeConnect
+   cell's b8 x 256²: on all 382 committed GIER images (resized by the
+   trainers' reader, gray on the card) its edges equal the plain flood
+   fill's on the same classes and `edge_maps` equals the host's
+   `canny_edges`, pixel for pixel; one launch a call; the kernel's call and device time (a CUDA graph of 40 calls),
+   the flood fill's call time and the bound of its bytes (a byte read and
+   a byte written a pixel); `train-inpaint --backend edgeconnect` at b8 x
+   256² for 4 iterations: finite losses, one launch an edge map (4
+   iterations and 4 held-out batches), its three files read back by
+   `load_edgeconnect` and its fill finite.
 
 The last three lines of stdout are the kernels JSON line, the card's
 name and power limit from nvidia-smi, and {"ok": true, "device": ...}.
@@ -283,7 +296,7 @@ from t2onet_tpu_torch.data.loader import device_put_batch
 from t2onet_tpu_torch.data.synthetic import SyntheticFiveK, synthetic_vocab
 from t2onet_tpu_torch.data.text import parse_sent
 from t2onet_tpu_torch.models.actor import Actor
-from t2onet_tpu_torch.ops import bank, build, chain, step
+from t2onet_tpu_torch.ops import bank, build, chain, hysteresis, step
 from t2onet_tpu_torch.ops.operators import OP_NAMES
 from t2onet_tpu_torch.precision import set_cuda_precision
 from t2onet_tpu_torch.serve import ServingEngine
@@ -309,8 +322,9 @@ def fail(msg):
 
 
 def reset_launches():
-    for k in chain.LAUNCHES:
-        chain.LAUNCHES[k] = 0
+    for counts in (chain.LAUNCHES, hysteresis.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def logged_losses(path, keys=("op_loss", "param_loss", "L1_loss",
@@ -3150,7 +3164,7 @@ def inpaint_phase():
         fail("train_inpaint launched a chain or step kernel")
 
     # the train step's time, and one step card against CPU
-    a = train_inpaint.build_parser().parse_args(INPAINT_ARGV)
+    a = train_inpaint.parse_args(INPAINT_ARGV)
     ds = common.build_dataset_and_vocab(a, "train")[0]
     img_np = next(ds.batches(a.batch_size, 1, shuffle=False))["img_x"]
     mask_np = inpaint.random_freeform_masks(np.random.default_rng(5),
@@ -3304,6 +3318,7 @@ def demo_plan_phase():
     from PIL import Image
 
     from t2onet_tpu_torch.cli import demo, plan_gier
+    from t2onet_tpu_torch.models import edgeconnect
 
     shutil.rmtree(DEMO_DIR, ignore_errors=True)
     out = {}
@@ -3318,6 +3333,14 @@ def demo_plan_phase():
         save(img, path)
 
     demo.save_img = keep
+    edge_calls = []
+    edge_maps = edgeconnect.edge_maps
+
+    def counted_edge_maps(*args, **kw):
+        edge_calls.append(args[0].device.type)
+        return edge_maps(*args, **kw)
+
+    edgeconnect.edge_maps = counted_edge_maps
     try:
         for dev in ("cuda", "cpu"):
             reset_launches()
@@ -3357,16 +3380,32 @@ def demo_plan_phase():
         prog = DEMO_ARGV + ["--short_size", str(PROGRAM_SIZE), "--program",
                             json.dumps(PROGRAM), "--mask", mask_path]
         out["program_levels"] = {}
+        out["hysteresis_launches"] = {}
         for name, flag in (("inpaint_ckpt", ["--inpaint_ckpt",
                                              INPAINT_CKPT]),
                            ("edgeconnect", ["--edgeconnect_dir",
                                             EDGECONNECT_DIR])):
             for dev in ("cuda", "cpu"):
                 reset_launches()
+                edge_calls.clear()
                 demo.main(prog + flag + ["--device", dev, "--out_dir",
                                          os.path.join(DEMO_DIR, name, dev)])
                 if any(chain.LAUNCHES.values()):
                     fail(f"--program launched {dict(chain.LAUNCHES)}")
+                # EdgeConnect's edges: one hysteresis launch an edge map
+                # call on the card (the bank runs the filler every step),
+                # none on the CPU or with the gated filler
+                got = hysteresis.LAUNCHES["hysteresis"]
+                want = len(edge_calls) if dev == "cuda" else 0
+                out["hysteresis_launches"][f"{name}_{dev}"] = got
+                log(f"  demo --program, {name} filler on {dev}: "
+                    f"{len(edge_calls)} edge map calls, {got} hysteresis "
+                    f"launches (want {want})")
+                if got != want or (name == "edgeconnect") != bool(
+                        edge_calls):
+                    fail(f"demo --program with the {name} filler on {dev}: "
+                         f"{got} hysteresis launches for {len(edge_calls)} "
+                         f"edge map calls")
             d = os.path.join(DEMO_DIR, name)
             raw, dec = demo_levels(written, d, len(PROGRAM))
             hole = [written[os.path.join(d, "cuda", f"step{i}.jpg")]
@@ -3382,6 +3421,7 @@ def demo_plan_phase():
                      f"card vs CPU, hole moved {changed}")
     finally:
         demo.save_img = save
+        edgeconnect.edge_maps = edge_maps
 
     # the GIER planner with the trained filler: every filler call of the
     # card's search again on the CPU from the same input, and two pairs
@@ -4872,6 +4912,131 @@ def tp_heads_phase():
             "commands": listed}
 
 
+# -- phase 36 -----------------------------------------------------------------
+EDGES_DIR = os.path.join("output", "chip_smoke_edges")
+GIER_IMAGES = os.path.join("data_real_gier", "GIER", "images")
+EDGES_SIZE, EDGES_BATCH = 256, 8          # EdgeConnect's, the cell's
+EDGES_TRAIN_ITERS = 4
+EDGES_ARGV = ["--backend", "edgeconnect", "--device", "cuda",
+              "--data_dir", "data_real_h2h", "--act_dir", FIVEK_ACTS,
+              "--glove_path", FIVEK_GLOVE_NPY,
+              "--num_iters", str(EDGES_TRAIN_ITERS), "--print_every", "2",
+              "--run_dir", EDGES_DIR]
+
+
+def edges_phase():
+    """The hysteresis kernel (csrc/hysteresis.cu) at the EdgeConnect
+    cell's shape, b8 x 256²: on every committed GIER image (resized to 256
+    by the trainers' reader, gray on the card) the kernel's edges equal
+    the plain flood fill's on the same classes and `edge_maps` equals the
+    host's `canny_edges` pixel for pixel (the card test holds it on
+    stress classes); one launch a call; the kernel's call and device
+    time, the plain version's call time and the bound of the bytes it
+    must move; then `train-inpaint --backend edgeconnect` at 256², b8, for
+    a few iterations: finite losses, one launch an edge map (each
+    iteration's and each held-out batch's), its three checkpoint files
+    read back by `load_edgeconnect` and its fill finite."""
+    from t2onet_tpu_torch.cli import train_inpaint
+    from t2onet_tpu_torch.data.fivek import load_train_img
+    from t2onet_tpu_torch.models import edgeconnect
+    from t2onet_tpu_torch.train.edgeconnect import CHECKPOINTS
+
+    paths = sorted(os.listdir(GIER_IMAGES))
+    imgs = np.stack([load_train_img(os.path.join(GIER_IMAGES, f),
+                                    EDGES_SIZE, np.uint8) for f in paths])
+    reset_launches()
+    calls = off_kernel = off_canny = edge_px = 0
+    first = None
+    t0 = time.perf_counter()
+    for at in range(0, len(imgs), EDGES_BATCH):
+        img = torch.from_numpy(imgs[at:at + EDGES_BATCH]).cuda().float() \
+            / 255.0
+        gray = edgeconnect.image_gray(img)
+        cls = edgeconnect.canny_classes(gray)
+        got = hysteresis.hysteresis(cls)
+        off_kernel += int((got != hysteresis.hysteresis_reference(cls))
+                          .sum())
+        edges = edgeconnect.edge_maps(gray).cpu().numpy()
+        calls += 2
+        want = np.stack([edgeconnect.canny_edges(g)
+                         for g in gray.cpu().numpy()])
+        off_canny += int((edges != want).sum())
+        edge_px += int(want.sum())
+        if first is None:
+            first = (gray, cls)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    launches = hysteresis.LAUNCHES["hysteresis"]
+    log(f"edges: {len(imgs)} GIER images at {EDGES_SIZE}² in batches of "
+        f"{EDGES_BATCH} ({edge_px} edge pixels): kernel vs flood fill "
+        f"{off_kernel} pixels apart, edge_maps vs canny_edges {off_canny}; "
+        f"{launches} launches for {calls} calls ({check_s:.1f} s host "
+        f"clock)")
+    if off_kernel or off_canny or launches != calls:
+        fail(f"the hysteresis kernel: {off_kernel} / {off_canny} pixels "
+             f"off, {launches} launches for {calls}")
+
+    # timing at b8 x 256² on the first batch's classes
+    gray, cls = first
+    n_px = cls.numel()
+    call = statistics.median(time_ms(lambda: hysteresis.hysteresis(cls)))
+    dev = statistics.median(device_ms(hysteresis.hysteresis,
+                                      rotations((cls,), n_px)))
+    plain = statistics.median(time_ms(
+        lambda: hysteresis.hysteresis_reference(cls), warmup=1, iters=5))
+    canny = statistics.median(time_ms(lambda: edgeconnect.edge_maps(gray)))
+    bound = 2 * n_px / PEAK_BYTES_S * 1e3
+    log(f"  hysteresis at b{cls.shape[0]} x {EDGES_SIZE}²: kernel "
+        f"{call:.4f} ms call, {dev:.4f} ms device (a graph of 40 calls); "
+        f"plain flood fill {plain:.4f} ms call; bound {bound:.6f} ms "
+        f"(bytes: a byte of classes read, a byte of edges written a "
+        f"pixel); edge_maps (gray to edges) {canny:.4f} ms call")
+
+    # the trainer through its CLI, and its checkpoints read back
+    shutil.rmtree(EDGES_DIR, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    state, held = train_inpaint.main(EDGES_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = hysteresis.LAUNCHES["hysteresis"]
+    want = EDGES_TRAIN_ITERS + train_inpaint.N_EVAL
+    losses = [v for _, _, v in logged_losses(
+        os.path.join(EDGES_DIR, "inpaint.jsonl"), ("edgeconnect_G_loss",))]
+    ckpt = os.path.join(EDGES_DIR, "edgeconnect_model")
+    hole = np.zeros((EDGES_SIZE, EDGES_SIZE), np.float32)
+    hole[64:192, 64:192] = 1.0
+    fill = edgeconnect.load_edgeconnect(
+        os.path.join(ckpt, CHECKPOINTS[0]), os.path.join(ckpt, CHECKPOINTS[1]),
+        hole, device="cuda")
+    filled = fill(torch.from_numpy(imgs[:EDGES_BATCH]).cuda().float() / 255.0)
+    filled_ok = tuple(filled.shape) == (EDGES_BATCH, 3, EDGES_SIZE,
+                                        EDGES_SIZE) and bool(
+        torch.isfinite(filled).all())
+    log(f"  train-inpaint --backend edgeconnect: {EDGES_TRAIN_ITERS} "
+        f"iterations at b{EDGES_BATCH} x {EDGES_SIZE}² in {wall:.2f} s (host "
+        f"clock, set-up and the held-out batches included), steps "
+        f"{state.stats['steps']}, logged G losses {losses}, held-out {held}; "
+        f"{train_launches} hysteresis launches (want {want}: each "
+        f"iteration's and each held-out batch's edges); its files "
+        f"{sorted(os.listdir(ckpt))} read back by load_edgeconnect, its "
+        f"fill of {EDGES_BATCH} GIER images finite: {filled_ok}")
+    if state.stats["steps"] != EDGES_TRAIN_ITERS or not losses \
+            or not all(math.isfinite(v) for v in losses) \
+            or train_launches != want or any(chain.LAUNCHES.values()) \
+            or sorted(os.listdir(ckpt)) != sorted(CHECKPOINTS) \
+            or not filled_ok:
+        fail(f"train-inpaint --backend edgeconnect: steps "
+             f"{state.stats['steps']}, losses {losses}, {train_launches} "
+             f"hysteresis launches, chain {dict(chain.LAUNCHES)}")
+    return {"images": len(imgs), "edge_pixels": edge_px,
+            "pixels_off": off_kernel + off_canny,
+            "launches": launches, "ms": call, "device_ms": dev,
+            "plain_ms": plain, "bound_ms": bound, "edge_maps_ms": canny,
+            "train_s": wall, "train_launches": train_launches,
+            "train_losses": losses, "held_out": held}
+
+
 PHASES = {"4b": eval_chain_phase, "serve_pipeline": serve_pipeline_phase,
           "http": http_phase, "inpaint": inpaint_phase,
           "demo_plan": demo_plan_phase, "gan": gan_phase,
@@ -4879,7 +5044,8 @@ PHASES = {"4b": eval_chain_phase, "serve_pipeline": serve_pipeline_phase,
           "pix2pixhd": pix2pixhd_phase, "dp": dp_phase,
           "mesh_serve": mesh_serve_phase, "mesh_plan": mesh_plan_phase,
           "ops_extra": ops_extra_phase, "convert": convert_phase,
-          "supervisor": supervisor_phase, "tp_heads": tp_heads_phase}
+          "supervisor": supervisor_phase, "tp_heads": tp_heads_phase,
+          "edges": edges_phase}
 
 
 def run_phases(names):
@@ -4965,6 +5131,7 @@ def main(argv=None):
     cv = convert_phase()
     sup = supervisor_phase()
     tp = tp_heads_phase()
+    ed = edges_phase()
     # the planner runs no kernel: phases 14-15 checked that every count
     # stayed 0 (pf["launches"], pg["launches"])
     plan = {"plan_fivek": pf["launches"], "plan_gier": pg["launches"]}
@@ -5074,7 +5241,22 @@ def main(argv=None):
         "plain_ms_b128_512": ms["plain_ms_b128_512"],
         "bound_ms_b128_512": ms["bound_ms_b128_512"],
         "device_ms": ms["device_ms"],
-        "device_ms_b128_512": ms["device_ms_b128_512"]}],
+        "device_ms_b128_512": ms["device_ms_b128_512"]}, {
+        "name": "hysteresis", "route": "cuda",
+        "source": "t2onet_tpu_torch/csrc/hysteresis.cu",
+        # no TPU kernel: the JAX package's canny labels on the host
+        "replaces": "t2onet_tpu/models/edgeconnect.py:220",
+        "launches": ed["launches"] + ed["train_launches"] + sum(
+            dp["hysteresis_launches"].values()),
+        "launches_by_path": {"edges_b8_256": ed["launches"],
+                             "train_inpaint_edgeconnect":
+                                 ed["train_launches"],
+                             **{f"demo_{k}": v for k, v in
+                                dp["hysteresis_launches"].items()}},
+        "max_abs_err": ed["pixels_off"],
+        "ms": ed["ms"], "kernel_ms": ed["ms"], "plain_ms": ed["plain_ms"],
+        "bound_ms": ed["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "device_ms": ed["device_ms"]}],
         "step_bwd_slots_b64_128": slots, "chain_slots": chain_slots,
         "train": t, "gier_train": gt, "fivek_eval": fe, "gier_eval": ge,
         "plan_fivek": pf, "plan_gier": pg,
@@ -5085,7 +5267,8 @@ def main(argv=None):
         "serve_bench": hp["bench"], "inpaint": ip, "demo_plan": dp,
         "gan": gn, "gan_plan": gp, "fid": fd, "pix2pixhd": p2p,
         "dp": dpr, "mesh_serve": msv, "mesh_plan": mpl,
-        "ops_extra": ox, "convert": cv, "supervisor": sup, "tp_heads": tp}
+        "ops_extra": ox, "convert": cv, "supervisor": sup, "tp_heads": tp,
+        "edges": ed}
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

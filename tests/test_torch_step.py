@@ -188,7 +188,7 @@ def test_fused_step_autograd_plumbing():
 
 
 def test_kernel_sources_are_all_built_together():
-    assert set(build.sources()) == {"chain", "step_bwd"}
+    assert set(build.sources()) == {"chain", "step_bwd", "hysteresis"}
     assert build.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
     assert "-fmad=false" in build.NVCC_FLAGS
     assert not any("fast" in f for f in build.NVCC_FLAGS)
