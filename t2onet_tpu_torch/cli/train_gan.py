@@ -44,7 +44,8 @@ import torch
 
 from t2onet_tpu_torch.cli import common
 from t2onet_tpu_torch.cli.train_fivek import evaluate
-from t2onet_tpu_torch.data.loader import Prefetcher, device_put_batch
+from t2onet_tpu_torch.data.loader import (LENGTHS_KEY, Prefetcher,
+                                          device_put_batch)
 from t2onet_tpu_torch.models.actor import select_end_images
 from t2onet_tpu_torch.models.common import init_torch_defaults
 from t2onet_tpu_torch.models.gan import DiscBundle, Seq2SeqGANLosses
@@ -94,10 +95,11 @@ def gan_step(state: TrainState, gan: GANState, batch, losses,
              generator=None, fused_exec: bool = False, noise_fn=None):
     """One GAN iteration (train_seq2seqGAN.py:77-130). batch: x (B,L),
     img_x (B,3,H,W), gt_img (B,3,H,W), optionally pseudo_real (B,3,H,W),
-    on the actor's device. The rollout samples its ops with Gumbel draws
-    from `generator` (or `noise_fn`); `fused_exec` executes each step
-    through `ops.step.fused_step`. Returns the metrics as tensors on the
-    device.
+    on the actor's device, and optionally the host lengths of x
+    (`LENGTHS_KEY`), which both encoder calls pack by. The rollout
+    samples its ops with Gumbel draws from `generator` (or `noise_fn`);
+    `fused_exec` executes each step through `ops.step.fused_step`.
+    Returns the metrics as tensors on the device.
 
     Under a data-parallel group (JAX's `make_gan_step(mesh=)`) each rank
     takes its rows: the draws are the global batch's rows, every
@@ -112,6 +114,7 @@ def gan_step(state: TrainState, gan: GANState, batch, losses,
         bundle.train()
         src, gt = batch["img_x"], batch["gt_img"]
         pseudo = batch.get("pseudo_real")
+        lengths = batch.get(LENGTHS_KEY)
         # a rank's share of a global mean over equal row blocks
         share = 1.0 / mesh.data_size()
         with span("train.gan.gen"):
@@ -119,12 +122,13 @@ def gan_step(state: TrainState, gan: GANState, batch, losses,
                 # the text condition from the encoder's hidden state,
                 # held fixed
                 with torch.no_grad():
-                    enc_h = actor.lang_encoder(batch["x"])[1][0]
+                    enc_h = actor.lang_encoder(batch["x"], lengths)[1][0]
                     cond = bundle.cond_encoder(enc_h)
                 noise_fn, _ = global_draws(generator, noise_fn)
                 out = actor.episode(batch["x"], src, sample=True,
                                     generator=generator, noise_fn=noise_fn,
-                                    fused_exec=fused_exec)
+                                    fused_exec=fused_exec,
+                                    host_lengths=lengths)
                 fake = select_end_images(out["imgs"], out["ops"])
                 bundle.requires_grad_(False)   # G's loss: the actor only
                 try:

@@ -113,10 +113,17 @@ class Prefetcher:
         return False
 
 
+LENGTHS_KEY = "x_lengths"
+
+
 def device_put_batch(batch: dict, device) -> dict:
     """numpy batch -> tensors on `device` (other values pass through).
     On a CUDA device the host side is pinned and the copy non-blocking;
-    uint8 arrays become float32 / 255 on the device."""
+    uint8 arrays become float32 / 255 on the device. A batch with
+    request tokens `x` (B, L), zero-padded, also gets their lengths
+    under `LENGTHS_KEY`: a (B,) int64 tensor on the host, counted from
+    the same array, which the request encoder packs by without reading
+    the device (`RNNEncoder.forward`'s `host_lengths`)."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     out = {}
@@ -130,4 +137,8 @@ def device_put_batch(batch: dict, device) -> dict:
         else:
             t = t.to(device)
         out[k] = t.float() / 255.0 if v.dtype == np.uint8 else t
+    x = batch.get("x")
+    if isinstance(x, np.ndarray):
+        out[LENGTHS_KEY] = torch.from_numpy((x != 0).sum(axis=1,
+                                                         dtype=np.int64))
     return out

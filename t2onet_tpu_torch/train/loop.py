@@ -64,6 +64,7 @@ import functools
 
 import torch
 
+from t2onet_tpu_torch.data.loader import LENGTHS_KEY
 from t2onet_tpu_torch.models.actor import Actor, select_end_images
 from t2onet_tpu_torch.ops import bank
 from t2onet_tpu_torch.ops.color import abs_
@@ -339,7 +340,8 @@ def _eager_supervised(state: TrainState, batch, per_step_bn: bool):
     """The step operation by operation: (its metrics, the graph's
     inputs)."""
     with span("train.forward", graphed=False):
-        encoded = state.actor.lang_encoder(batch["x"])
+        encoded = state.actor.lang_encoder(batch["x"],
+                                           batch.get(LENGTHS_KEY))
         losses = _teacher_forced_losses(state.actor, encoded, batch,
                                         per_step_bn)
     state.apply_gradients(losses[0])
@@ -350,7 +352,8 @@ def _replayed_supervised(state: TrainState, graph, batch):
     """The step with everything after the encoder replayed: the replay's
     gradients set as the parameters' and fed to the encoder's backward."""
     with span("train.forward", graphed=True):
-        encoded = state.actor.lang_encoder(batch["x"])
+        encoded = state.actor.lang_encoder(batch["x"],
+                                           batch.get(LENGTHS_KEY))
         losses, flat, reached = graph(*_graph_inputs(encoded, batch))
     with span("train.backward"):
         state.opt.zero_grad(set_to_none=True)
@@ -375,7 +378,8 @@ def _replayed_supervised(state: TrainState, graph, batch):
 def supervised_step(state: TrainState, batch, per_step_bn: bool = False):
     """batch: x (B,L), y (B,T), img_x (B,3,H,W), img_y (B,T-1,3,H,W),
     gt_params (B,T-2,24), all on the actor's device (under data
-    parallelism, this rank's rows). `per_step_bn`: one
+    parallelism, this rank's rows), and optionally the host lengths of x
+    (`LENGTHS_KEY`, as `device_put_batch` ships them). `per_step_bn`: one
     ResNet forward per decode step (`Actor.supervised`). On a CUDA
     device at world size 1 everything after the request encoder replays
     the graph of its `_graph_key`, or at the key's first sight, or once
@@ -398,9 +402,10 @@ def supervised_step(state: TrainState, batch, per_step_bn: bool = False):
 
 def episode_step(state: TrainState, batch, generator=None, sample=True,
                  fused_exec=False, noise_fn=None, probe_size=None):
-    """batch: x (B,L), img_x (B,3,H,W), gt_img (B,3,H,W), and for GIER's
-    local edits masks_vocab (B,n_cls,1,H,W), the per-op masks each
-    rollout step gathers by its predicted op. With `sample`, ops (and in
+    """batch: x (B,L), img_x (B,3,H,W), gt_img (B,3,H,W), optionally the
+    host lengths of x (`LENGTHS_KEY`), and for GIER's local edits
+    masks_vocab (B,n_cls,1,H,W), the per-op masks each rollout step
+    gathers by its predicted op. With `sample`, ops (and in
     the discrete mode bins) are drawn with Gumbel noise from `generator`
     (or `noise_fn`; under data parallelism both give the global batch's
     draws, `global_draws`); `fused_exec` executes each step through
@@ -414,7 +419,7 @@ def episode_step(state: TrainState, batch, generator=None, sample=True,
                 batch["x"], batch["img_x"], sample=sample,
                 generator=generator, noise_fn=noise_fn,
                 fused_exec=fused_exec, masks=batch.get("masks_vocab"),
-                probe_size=probe_size)
+                probe_size=probe_size, host_lengths=batch.get(LENGTHS_KEY))
             loss = episode_l1_loss(out["imgs"], out["ops"], batch["gt_img"])
         state.apply_gradients(loss)
         return global_metrics({"L1_loss": loss})

@@ -233,7 +233,7 @@ def test_train_gier_runs_checkpoints_and_resumes(tmp_path, monkeypatch):
     argv = TINY + ["--run_dir", run]
     state = train_gier.main(argv + ["--num_iters", "4"])
     assert state.step == 4
-    assert seen == [["gt_img", "img_x", "masks_vocab", "x"]] * 2
+    assert seen == [["gt_img", "img_x", "masks_vocab", "x", "x_lengths"]] * 2
     glove = text.load_embedding(GLOVE_H5)
     emb = state.actor.lang_encoder.embedding.weight.detach().numpy()
     np.testing.assert_array_equal(emb[4:], glove)

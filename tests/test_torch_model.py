@@ -206,3 +206,87 @@ def test_attend_batch_max_mask_matches_jax(parts):
         finally:
             pa.cfg = dataclasses.replace(pa.cfg, attend_batch_max=False)
         np.testing.assert_array_equal(got, expect)
+
+
+# -- packing by host lengths ---------------------------------------------------
+
+# (B, L) lengths: ties, a full-length row and a one-token row
+LENGTH_CASES = {
+    "ties": [3, 5, 3, 5, 1, 3],
+    "full_and_one_token": [L, 1, 7, L, 1, 4],
+    "all_equal": [6, 6, 6, 6],
+}
+
+
+def _encoder_and_tokens(lengths, fix_embedding=False, seed=0):
+    from t2onet_tpu_torch.models.encoder import RNNEncoder
+
+    torch.manual_seed(seed)
+    enc = RNNEncoder(30, word_vec_dim=8, hidden_size=6, n_layers=2,
+                     fix_embedding=fix_embedding)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, 30, (len(lengths), L))
+    tokens[np.arange(L)[None] >= np.array(lengths)[:, None]] = 0
+    return enc, torch.from_numpy(tokens)
+
+
+def _encoded_and_grads(enc, tokens, host_lengths):
+    """The encoder's outputs and every parameter's gradient of a loss that
+    reaches the outputs, h and c."""
+    enc.zero_grad(set_to_none=True)
+    out, (h, c), valid = enc(tokens, host_lengths)
+    w = torch.linspace(-1, 1, out.shape[-1])
+    (out * w).sum().backward(retain_graph=True)
+    (h.square().sum() + c.sum()).backward()
+    return ([out.detach(), h.detach(), c.detach(), valid],
+            [p.grad.clone() for p in enc.parameters() if p.grad is not None])
+
+
+def _torch_helpers_encoded(enc, tokens, lengths):
+    """The encoder as `pack_padded_sequence` / `pad_packed_sequence` pack
+    and unpack it: what the port computed before it packed by itself."""
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+    packed = pack_padded_sequence(enc.embed(tokens), lengths,
+                                  batch_first=True, enforce_sorted=False)
+    out, (h, c) = enc.rnn(packed)
+    out, _ = pad_packed_sequence(out, batch_first=True,
+                                 total_length=tokens.shape[1])
+    return out, h, c
+
+
+@pytest.mark.parametrize("fix_embedding", [False, True])
+@pytest.mark.parametrize("case", sorted(LENGTH_CASES))
+def test_host_lengths_encoder_is_bit_equal(case, fix_embedding):
+    """Packed by host lengths, the encoder's outputs, (h, c), valid mask
+    and gradients are bit-equal to the encoder that counts the lengths on
+    the device, and its outputs to torch's own pack/pad helpers."""
+    lengths = LENGTH_CASES[case]
+    enc, tokens = _encoder_and_tokens(lengths, fix_embedding)
+    host = torch.tensor(lengths)
+    assert torch.equal(host, (tokens != 0).sum(1))
+    dev_outs, dev_grads = _encoded_and_grads(enc, tokens, None)
+    host_outs, host_grads = _encoded_and_grads(enc, tokens, host)
+    assert len(dev_grads) == len(host_grads) > 0
+    for a, b in zip(dev_outs + dev_grads, host_outs + host_grads):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        out, h, c = _torch_helpers_encoded(enc, tokens, host)
+    assert torch.equal(out, host_outs[0])
+    assert torch.equal(h.view(2, 2, len(lengths), -1).transpose(1, 2)
+                       .reshape(2, len(lengths), -1), host_outs[1])
+    assert torch.equal(c.view(2, 2, len(lengths), -1).transpose(1, 2)
+                       .reshape(2, len(lengths), -1), host_outs[2])
+    assert torch.equal(out[host_outs[3] == 0], torch.zeros_like(
+        out[host_outs[3] == 0]))
+
+
+def test_encoder_stats_count_each_path():
+    enc, tokens = _encoder_and_tokens(LENGTH_CASES["ties"])
+    assert enc.stats == {"calls": 0, "host_packed": 0}
+    with torch.no_grad():
+        enc(tokens)
+        assert enc.stats == {"calls": 1, "host_packed": 0}
+        enc(tokens, (tokens != 0).sum(1))
+        enc(tokens, (tokens != 0).sum(1))
+    assert enc.stats == {"calls": 3, "host_packed": 2}

@@ -254,3 +254,90 @@ def test_supervised_losses_position_mask():
                                    (lp, pp, y, gp)))
     for g, w in zip(got, want):
         np.testing.assert_allclose(float(g), float(w), rtol=1e-6)
+
+
+# -- the loader's host lengths through the steps ------------------------------
+
+def _loader_batch(rows=B, seed=0):
+    """A synthetic FiveK batch through `device_put_batch` on the CPU, its
+    requests cut to a full-length, a one-token and two tied rows."""
+    from t2onet_tpu_torch.data.loader import device_put_batch
+    from t2onet_tpu_torch.data.synthetic import SyntheticFiveK
+
+    ds = SyntheticFiveK(n=8, img_size=16, seed=seed, req_max_len=L,
+                        op_max_len=CFG.decoder_max_len)
+    nb = next(ds.batches(rows, 1, shuffle=False))
+    x = nb["x"].copy()
+    x[0] = np.where(x[0] == 0, x[0, 0], x[0])          # full length
+    x[1, 1:] = 0                                        # one token
+    x[3, 3:], x[2, 3:] = 0, 0                           # a tie at 3
+    keys = ("y", "img_x", "img_y", "gt_params")
+    host = {"x": x, **{k: nb[k] for k in keys},
+            "gt_img": nb["img_y"][:, -1]}
+    return device_put_batch(host, "cpu")
+
+
+def test_device_put_batch_ships_host_lengths():
+    from t2onet_tpu_torch.data.loader import LENGTHS_KEY, device_put_batch
+
+    b = _loader_batch()
+    lengths = b[LENGTHS_KEY]
+    assert lengths.device.type == "cpu" and lengths.dtype == torch.int64
+    assert torch.equal(lengths, (b["x"] != 0).sum(1))
+    assert lengths.tolist()[:4] == [L, 1, 3, 3]
+    assert LENGTHS_KEY not in device_put_batch(
+        {"img_x": np.zeros((2, 3, 4, 4), np.uint8)}, "cpu")
+
+
+def _run_step(kind, batch):
+    """One step of `kind` from a fixed init: (its metrics, the actor's and
+    (GAN) the discriminator's state, the request encoder's stats)."""
+    from t2onet_tpu_torch.cli import train_gan
+    from t2onet_tpu_torch.config import ModelConfig, OperatorConfig
+    from t2onet_tpu_torch.models import gan
+    from t2onet_tpu_torch.models.actor import Actor
+
+    cfg = ModelConfig.tiny(encoder_max_len=L, decoder_max_len=3)
+    actor = Actor(cfg, OperatorConfig(), V,
+                  generator=torch.Generator().manual_seed(5))
+    state = loop.TrainState(actor, learning_rate=LR)
+    gen = torch.Generator().manual_seed(9)
+    bundle = None
+    if kind == "supervised":
+        m = loop.supervised_step(state, batch)
+    elif kind == "episode":
+        m = loop.episode_step(state, batch, generator=gen)
+    else:
+        torch.manual_seed(11)
+        bundle = gan.DiscBundle(cfg.n_layers * 2 * cfg.hidden_size,
+                                cond_nc=16, ndf=8)
+        m = train_gan.gan_step(state, train_gan.GANState(bundle,
+                                                         state.params),
+                               batch, gan.Seq2SeqGANLosses(), generator=gen)
+    tensors = dict(actor.state_dict())
+    if bundle is not None:
+        tensors.update({"D." + k: v for k, v in
+                        bundle.state_dict().items()})
+    return m, tensors, dict(actor.lang_encoder.stats)
+
+
+@pytest.mark.parametrize("kind", ["supervised", "episode", "gan"])
+def test_steps_with_host_lengths_equal_steps_without(kind):
+    """A loader batch with its host lengths and the same batch without
+    them give the same metrics and parameters, bit for bit; with them
+    every encoder call packed from the host."""
+    from t2onet_tpu_torch.data.loader import LENGTHS_KEY
+
+    batch = _loader_batch()
+    without = {k: v for k, v in batch.items() if k != LENGTHS_KEY}
+    m1, t1, s1 = _run_step(kind, batch)
+    m0, t0, s0 = _run_step(kind, without)
+    assert sorted(m1) == sorted(m0)
+    for k in m0:
+        assert torch.equal(torch.as_tensor(m1[k]), torch.as_tensor(m0[k])), k
+    assert sorted(t1) == sorted(t0)
+    for k in t0:
+        assert torch.equal(t1[k], t0[k]), k
+    calls = 2 if kind == "gan" else 1
+    assert s1 == {"calls": calls, "host_packed": calls}
+    assert s0 == {"calls": calls, "host_packed": 0}
