@@ -201,9 +201,10 @@ line. Phases (any failure exits non-zero): (any failure exits non-zero):
    checkpoint, no variance probe: B1 5 a pair and no other kernel,
    finite FIDs, the features' share of a pair; 4 images' features card
    against CPU within 1e-4 of their norm;
-28. pix2pixhd: `define_generator('global')` and `('local')` at their
-   defaults on one 256² image, card against CPU within 1e-4, ms a
-   forward;
+28. pix2pixhd: `define_generator('global')` and `('local')` at the
+   widths of pix2pixHD's 2048x1024 recipe, the global G on one 1024x512
+   image and the local G on one 2048x1024 image, card against CPU within
+   1e-4, ms a forward;
 29. dp: (a) `cli.train_fivek --synthetic --data_parallel 1` at full
    width, b64, 128 px, 4 iterations, in this process as rank 0 of a
    world of 1 on NCCL (torchrun's environment set here), against the
@@ -3862,18 +3863,28 @@ P2P_ATOL = 1e-4            # tanh outputs, card against CPU
 
 
 def pix2pixhd_phase():
-    """`define_generator('global')` and `('local')` at their defaults,
-    seeded torch-default weights, on one 256² image: the card against the
-    CPU within P2P_ATOL, and ms a forward on the card."""
+    """`define_generator('global')` and `('local')` at the widths of
+    pix2pixHD's 2048x1024 recipe (`train.pix2pixhd.G_OPTIONS`: the local
+    G ngf 32 around a 64-ngf global G of 4 downsamples and 9 blocks, 3
+    local blocks), the global G alone on one 1024x512 image (the scale it
+    sees inside the local G), the local G on one 2048x1024 image, seeded
+    torch-default weights: the card against the CPU within P2P_ATOL, and
+    ms a forward on the card."""
     from t2onet_tpu_torch.models.common import init_torch_defaults
     from t2onet_tpu_torch.models.pix2pixhd import define_generator
+    from t2onet_tpu_torch.train.pix2pixhd import G_OPTIONS
 
-    x = torch.from_numpy(np.random.default_rng(0).uniform(
-        -1, 1, (1, 3, 256, 256)).astype(np.float32))
-    xc = x.cuda()
+    o = G_OPTIONS
+    cases = {"global": (dict(ngf=o["ngf"] * 2, n_downsampling=o[
+                 "n_downsample_global"], n_blocks=o["n_blocks_global"]),
+                 (512, 1024)),
+             "local": (dict(o), (1024, 2048))}
     out = {}
-    for kind in ("global", "local"):
-        net = define_generator(kind)
+    for kind, (kw, (h, w)) in cases.items():
+        x = torch.from_numpy(np.random.default_rng(0).uniform(
+            -1, 1, (1, 3, h, w)).astype(np.float32))
+        xc = x.cuda()
+        net = define_generator(kind, **kw)
         init_torch_defaults(net, torch.Generator().manual_seed(5))
         net.eval()
         card = copy.deepcopy(net).cuda()
@@ -3885,12 +3896,14 @@ def pix2pixhd_phase():
 
             ms = statistics.median(timed(fwd, n=10, warmup=3))
         n_params = sum(p.numel() for p in net.parameters())
-        log(f"pix2pixhd {kind}: {n_params / 1e6:.2f}M params, 256², card vs "
-            f"CPU max abs {err:.2e} (bound {P2P_ATOL}); {ms:.2f} ms a forward "
-            f"(host clock, synchronised, median of 10)")
+        log(f"pix2pixhd {kind}: {n_params / 1e6:.2f}M params, {w}x{h}, card "
+            f"vs CPU max abs {err:.2e} (bound {P2P_ATOL}); {ms:.2f} ms a "
+            f"forward (host clock, synchronised, median of 10)")
         if not err <= P2P_ATOL:
             fail(f"pix2pixhd {kind}: the card disagrees with the CPU ({err})")
-        out[kind] = {"max_abs_err": err, "ms": ms, "params": n_params}
+        out[kind] = {"max_abs_err": err, "ms": ms, "params": n_params,
+                     "size": [h, w]}
+        del card
     return out
 
 

@@ -34,15 +34,17 @@ ACTIONS = list(OP_NAMES)
 ACT2PN = dict(zip(OP_NAMES, (1, 1, 1, 24, 0, 8, 1, 0)))
 
 
-def load_train_img(path: str, img_size: int, dtype=np.float32) -> np.ndarray:
-    """(3, img_size, img_size) RGB: uint8 for dtype=np.uint8 (the wire
-    format, divided by 255 on the device), else float32 in [0, 1]."""
+def load_train_img(path: str, img_size, dtype=np.float32) -> np.ndarray:
+    """(3, img_size, img_size) RGB, or (3, h, w) for img_size (h, w):
+    uint8 for dtype=np.uint8 (the wire format, divided by 255 on the
+    device), else float32 in [0, 1]."""
     import cv2
 
     img = cv2.imread(path)
     if img is None:
         raise FileNotFoundError(f"cannot read image {path}")
-    img = cv2.resize(img, (img_size, img_size))
+    h, w = (img_size, img_size) if np.ndim(img_size) == 0 else img_size
+    img = cv2.resize(img, (int(w), int(h)))
     img = img[:, :, ::-1].transpose(2, 0, 1)
     if np.dtype(dtype) == np.uint8:
         return np.ascontiguousarray(img)

@@ -2,7 +2,10 @@
 the GAN losses (counterpart of `t2onet_tpu.models.gan`; reference
 models/seq2seqGAN/networks.py:69-111, 294-424 and seq2seqGAN.py:71-117).
 
-The generator is the Actor itself: its rollout image at <END>. Modules
+The generator is the Actor itself: its rollout image at <END>. The same
+layers make pix2pixHD's discriminator (`cond_nc=0, norm="instance"`:
+no sentence code, no extra stride-1 layer, instance norms), which
+`train.pix2pixhd` trains beside the LocalEnhancer. Modules
 keep the reference checkpoint's names, so a reference seq2seqGAN
 `model.pth` loads by its own keys (`convert.load_torch_gan_checkpoint`):
 `netD.scale{i}_layer{j}.{0,1}` (the conv, then the BatchNorm where the
@@ -81,41 +84,53 @@ class ConditionEncoding(nn.Module):
         return self.fc(hidden.transpose(0, 1).reshape(hidden.shape[1], -1))
 
 
-def _layer(cin, cout, stride, bn=True, act=True):
+def _layer(cin, cout, stride, norm=None, act=True):
     mods = [nn.Conv2d(cin, cout, 4, stride, padding=2)]
-    if bn:
+    if norm == "batch":
         mods.append(GatedBatchNorm2d(cout, eps=1e-5))
+    elif norm == "instance":
+        mods.append(nn.InstanceNorm2d(cout, affine=False, eps=1e-5))
+    elif norm is not None:
+        raise ValueError(f"unknown norm {norm!r} (want batch | instance)")
     if act:
         mods.append(nn.LeakyReLU(0.2))
     return nn.Sequential(*mods)
 
 
 def discriminator_layers(input_nc: int = 6, cond_nc: int = 512,
-                         ndf: int = 64, n_layers: int = 3) -> List[nn.Module]:
-    """The n_layers + 3 layers of one PatchGAN (networks.py:359-424):
-    4x4 convs with padding 2, stride 2 for the first n_layers, the
-    sentence code concatenated before layer n_layers, 1-channel logits
-    last. The first and the last layer have no BatchNorm."""
+                         ndf: int = 64, n_layers: int = 3,
+                         norm: str = "batch") -> List[nn.Module]:
+    """The layers of one PatchGAN: 4x4 convs with padding 2, stride 2 for
+    the first n_layers, 1-channel logits last; the first and the last
+    layer have no norm. With a sentence code (cond_nc > 0) T2ONet+D's
+    n_layers + 3 (networks.py:359-424): the code concatenated before
+    layer n_layers and an extra nf -> nf layer after it. With cond_nc 0
+    pix2pixHD's NLayerDiscriminator (NVIDIA/pix2pixHD
+    models/networks.py), n_layers + 2 layers. norm: "batch" (the gated
+    BatchNorm) or "instance" (InstanceNorm2d without affine, pix2pixHD's
+    --norm instance)."""
     nf = ndf
-    layers = [_layer(input_nc, nf, 2, bn=False)]
+    layers = [_layer(input_nc, nf, 2)]
     for _ in range(1, n_layers):
         prev, nf = nf, min(nf * 2, 512)
-        layers.append(_layer(prev, nf, 2))
+        layers.append(_layer(prev, nf, 2, norm))
     prev, nf = nf, min(nf * 2, 512)
-    layers.append(_layer(prev + cond_nc, nf, 1))
-    layers.append(_layer(nf, nf, 1))
-    layers.append(_layer(nf, 1, 1, bn=False, act=False))
+    layers.append(_layer(prev + cond_nc, nf, 1, norm))
+    if cond_nc:
+        layers.append(_layer(nf, nf, 1, norm))
+    layers.append(_layer(nf, 1, 1, act=False))
     return layers
 
 
 def _patchgan(layers: Sequence[nn.Module], x, cond, n_layers: int,
               use_sigmoid: bool) -> List[torch.Tensor]:
-    """Every layer's output, the patch logits last; the sentence code is
-    broadcast over the map and concatenated before layer n_layers."""
+    """Every layer's output, the patch logits last; a sentence code, where
+    there is one, is broadcast over the map and concatenated before layer
+    n_layers."""
     feats = []
     h = x
     for j, layer in enumerate(layers):
-        if j == n_layers:
+        if j == n_layers and cond is not None:
             b, _, hh, ww = h.shape
             cmap = cond[:, :, None, None].expand(b, cond.shape[1], hh, ww)
             h = torch.cat([h, cmap], dim=1)
@@ -134,25 +149,30 @@ def avg_pool_3s2(x):
 
 class MultiscaleDiscriminator(nn.Module):
     """num_D PatchGANs over average-pooled scales (networks.py:309-356).
-    forward returns one feature list a scale, the full resolution first."""
+    forward returns one feature list a scale, the full resolution first.
+    cond_nc and norm as `discriminator_layers`."""
 
     def __init__(self, input_nc: int = 6, cond_nc: int = 512, ndf: int = 64,
-                 n_layers: int = 3, num_D: int = 2, use_sigmoid: bool = False):
+                 n_layers: int = 3, num_D: int = 2, use_sigmoid: bool = False,
+                 norm: str = "batch"):
         super().__init__()
         self.n_layers = n_layers
         self.num_D = num_D
         self.use_sigmoid = use_sigmoid
         for i in range(num_D):
-            for j, layer in enumerate(discriminator_layers(
-                    input_nc, cond_nc, ndf, n_layers)):
+            layers = discriminator_layers(input_nc, cond_nc, ndf, n_layers,
+                                          norm)
+            for j, layer in enumerate(layers):
                 setattr(self, f"scale{i}_layer{j}", layer)
+        self.depth = len(layers)
 
     def scale_layers(self, i: int) -> List[nn.Module]:
         return [getattr(self, f"scale{i}_layer{j}")
-                for j in range(self.n_layers + 3)]
+                for j in range(self.depth)]
 
-    def forward(self, x, cond) -> List[List[torch.Tensor]]:
-        """x (B, 6, H, W) source and image; cond (B, cond_nc)."""
+    def forward(self, x, cond=None) -> List[List[torch.Tensor]]:
+        """x (B, input_nc, H, W) source and image; cond (B, cond_nc), or
+        None without a sentence code."""
         results = []
         cur = x
         for i in range(self.num_D):

@@ -4,7 +4,9 @@ reference models/seq2seqGAN/networks.py:28-41, 130-291).
 
 T2ONet+D does not use them (its generator is the Actor); they complete
 the pix2pixHD surface for users who bring pix2pixHD checkpoints or want
-a CNN image-to-image baseline. The modules are the reference's
+a CNN image-to-image baseline, and `train.pix2pixhd` trains the
+LocalEnhancer at pix2pixHD's 2048x1024 recipe (`weights_init` is its
+init). The modules are the reference's
 nn.Sequentials, so a pix2pixHD state_dict loads by its own names
 (`model.{idx}`, `model.{idx}.conv_block.{1,5}`, and the enhancer's
 `model{n}_1` / `model{n}_2`). Norm is InstanceNorm2d(affine=False),
@@ -161,6 +163,24 @@ class Encoder(nn.Module):
             means = sums / torch.clamp_min(counts, 1.0)
             pooled.append((means[:, slot] * w_keep).reshape(c, h, w))
         return torch.stack(pooled)
+
+
+INIT_STD = 0.02
+
+
+def weights_init(module: nn.Module) -> nn.Module:
+    """pix2pixHD's weights_init (models/networks.py): every conv's and
+    transposed conv's weight N(0, 0.02), every BatchNorm2d's weight
+    N(1, 0.02) and bias 0, from torch's global generator; conv biases
+    keep torch's default."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                m.weight.normal_(0.0, INIT_STD)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.normal_(1.0, INIT_STD)
+                m.bias.zero_()
+    return module
 
 
 def define_generator(net_g: str = "global", **kw) -> nn.Module:

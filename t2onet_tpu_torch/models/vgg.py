@@ -40,6 +40,8 @@ _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
 
 VGG_LOSS_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
+# the ReLUs where the five slices end
+SLICE_TAPS = ("relu1_1", "relu2_1", "relu3_1", "relu4_1", "relu5_1")
 
 
 class Vgg19Features(nn.Module):
@@ -95,16 +97,25 @@ def torchvision_vgg19_features(sd: Dict, end: int = _SLICE_ENDS[-1]) -> Dict:
             if k.startswith("features.") and int(k.split(".")[1]) < end}
 
 
-def make_vgg_loss(model: Vgg19Features, weights=VGG_LOSS_WEIGHTS):
+def make_vgg_loss(model: Vgg19Features, weights=VGG_LOSS_WEIGHTS,
+                  imagenet_input: bool = True):
     """The reference VGGLoss: perceptual_fn(x, y) = sum_i w_i *
-    L1(vgg_i(x), vgg_i(y).detach()). The model's weights are frozen; the
-    gradient flows to x."""
+    L1(vgg_i(x), vgg_i(y).detach()), vgg_i the five slices. The model's
+    weights are frozen; the gradient flows to x. imagenet_input: the
+    slices of the ImageNet-normalised input (`forward`, T2ONet+D's
+    G_VGG); False: of the input as it is, as pix2pixHD's VGGLoss feeds
+    its [-1, 1] images to VGG19."""
     model.requires_grad_(False)
+    if imagenet_input:
+        slices = model
+    else:
+        def slices(x):
+            return list(model.taps(x, SLICE_TAPS).values())
 
     def perceptual_fn(x, y):
-        fx = model(x)
+        fx = slices(x)
         with torch.no_grad():
-            fy = model(y)
+            fy = slices(y)
         loss = x.new_zeros(())
         for w, a, b in zip(weights, fx, fy):
             loss = loss + w * (a - b).abs().mean()
